@@ -6,19 +6,34 @@
 From the root of a checkout, with one CUDA card:
 
 1. prints the card, the device count and nvidia-smi's name and power limit;
-2. builds both CUDA kernels with nvcc (in parallel) and prints the seconds;
+2. builds the three CUDA sources with nvcc (in parallel) and prints the
+   seconds;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
-   card (fused solver step at 128^2, one episode and a batch of four; flash
-   attention at B=4 in bf16 and float32 and at the serving slice's B=19);
-4. slice phase: the serving path of `config/config_serving.yaml` on
+   card (fused solver step and multi-step at 128^2, one episode and a batch
+   of four, the multi-step again at the dataset's 64 in the timing phase; lean flash attention at B=4 in bf16 and float32 and at the
+   serving slice's B=19; the training forward with logsumexp and the
+   backward at the training shape [8, 1024, 512], bf16, and the backward
+   also in float32);
+4. serving phase: the serving path of `config/config_serving.yaml` on
    `checkpoints/smokephysnet_128_best.npz` through the port's entry points:
    the 20-frame test sequence (20 fused-step launches) and one batched bf16
-   forward with flash attention (6 launches), held against the plain
+   forward with the lean flash kernel (6 launches), held against the plain
    per-op solver and the float32 einsum model;
-5. timing phase: CUDA-event medians of 20 runs after warm-up;
-   with --trace, also traces the serving forward and the simulator step
-   with torch.profiler and prints where their device time goes;
-6. prints the kernels' JSON line, the nvidia-smi line and, last,
+5. dataset phase: `config/config_train_fast.yaml`'s train and validation
+   sets (64 and 8 episodes at 128^2, T = 20) generated on the card through
+   `data.synthetic.create_data_loaders` (one multi-step launch per chunk),
+   two episodes held against the per-op solver;
+6. training phase: that config at full width (hidden 512, 6 layers, 8
+   heads, bf16, flash, fast_math): 10 train steps at batch 8 (6 launches of
+   the forward-with-logsumexp and backward kernels each per step, no lean
+   forward), one step held against the same step with the attention's plain
+   versions (loss, gradient norm and each q, k, v projection's gradient),
+   one eval pass, a checkpoint written and served again through
+   `train/serving.load_model`;
+7. timing phase: CUDA-event medians after warm-up; with --trace, also
+   traces the serving forward, the simulator step and one train step with
+   torch.profiler and prints where their device time goes;
+8. prints the kernels' JSON line, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
@@ -34,6 +49,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "config", "config_serving.yaml")
+TRAIN_CONFIG = os.path.join(ROOT, "config", "config_train_fast.yaml")
 CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet_128_best.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16 tensor
@@ -54,6 +70,34 @@ FLASH_BF16_REL_NORM = 2.0 ** -8
 FLASH_F32_ATOL = 1e-5   # float32, sums in another order
 SIM_TOL = dict(atol=2e-5, rtol=1e-4)  # fused path vs per-op path, 20 steps
 RECON_BF16_VS_F32 = 2e-2  # bf16 + flash + fast_math vs float32 einsum model
+MULTI_ATOL = 1e-5  # multi-step kernel vs its plain version; 0 vs 20 steps
+LSE_ATOL = 1e-4   # logsumexp ~ log 1024 ~ 7, float32 scores on both sides
+# bwd bf16: both sides round P = exp(S - lse) against the same final lse,
+# and dS once, so only the products' summation order differs (~1e-4 read
+# on an H100 for each of dq, dk, dv); 2^-10 leaves ten times that, and a
+# fault in a few query rows of dq (one row ~2^-8) or a key tile dropped
+# for one head (>~ 2^-5) exceeds it
+BWD_BF16_REL_NORM = 2.0 ** -10
+BWD_F32_REL_NORM = 1e-5
+EPISODE_ATOL = 1e-5  # fused-kernel episodes vs the per-op solver
+# one train step, kernels vs plain versions: loss and global gradient norm
+# (~1e-6 read on an H100), and each layer's q, k, v projection weights'
+# gradients, ||d|| / ||ref||, which a backward fault reaches first
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_NORM_RTOL = 1e-4
+# ... against the plain versions of both flash kernels: the two forwards
+# round P against other maxima (out 2.3e-3 apart), which spreads to
+# ~2.5e-3 (largest 7.9e-3) in these gradients
+TRAIN_PROJ_GRAD_REL_NORM = 2.0 ** -6
+# ... against the forward kernel and the plain backward, where only the
+# backward differs: the last layer's read the kernel's dq, dk, dv directly
+# (~2.2e-4 on an H100); each layer below adds the bf16 roundings that
+# this flips in its own backward (largest 1.65e-3, the first layer's)
+TRAIN_BWD_TOP_PROJ_GRAD_REL_NORM = 2.0 ** -10
+TRAIN_BWD_PROJ_GRAD_REL_NORM = 2.0 ** -8
+TRAIN_NUM = 64  # cuts of config_train_fast.yaml: episodes and steps
+VAL_NUM = 8
+TRAIN_STEPS = 10
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
 
@@ -72,6 +116,62 @@ def fail(msg):
 def bf16_ulp(x):
     """Spacing of bfloat16 numbers (8 significant bits) at magnitude x."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def timed(fn, runs=20, warmup=3):
+    """Median ms of `runs` calls, each between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def maxerr(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_norm(a, b):
+    """||a - b|| / ||b|| in float32."""
+    import torch
+
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def lower_bound(nbytes, flops, peak_flops):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate and
+    the operations over `peak_flops`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def step_flops(h, w, iters, taps=3):
+    """Float32 operations of one solver step of one episode, stage by stage
+    (taps = 2 max_disp + 1)."""
+    nu, nv, nc = (h + 1) * w, h * (w + 1), h * w
+    return (2 * nc                         # buoyancy
+            + 7 * (nu + nv + nc)           # diffusion
+            + 4 * nc                       # divergence
+            + 5 * nc * iters               # Jacobi
+            + 3 * ((h - 1) * w + h * (w - 1))  # correction
+            + (12 + 4 * taps + 7 * taps * taps) * (nu + nv + nc)  # advection
+            + nc)                          # decay
+
+
+def step_bytes(h, w):
+    """Bytes of one episode's four fields, once."""
+    return 4 * ((h + 1) * w + h * (w + 1) + 2 * h * w)
 
 
 def profile(fn, runs, label, top=15):
@@ -120,6 +220,275 @@ def profile(fn, runs, label, top=15):
             f"({a.count // runs} per call)")
 
 
+COUNTERS = {
+    "fused_step": ("step", "LAUNCHES"),
+    "fused_multi_step": ("step", "MULTI_LAUNCHES"),
+    "flash_attention_tokens": ("attn", "LAUNCHES"),
+    "flash_attention_tokens_fwd_lse": ("attn", "LSE_LAUNCHES"),
+    "flash_attention_tokens_bwd": ("attn", "BWD_LAUNCHES"),
+}
+
+
+def reset_counts(step_ops, attn_ops):
+    """Sets every kernel's launch count to 0."""
+    mods = {"step": step_ops, "attn": attn_ops}
+    for mod, attr in COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+
+
+def read_counts(step_ops, attn_ops):
+    mods = {"step": step_ops, "attn": attn_ops}
+    return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def expect_counts(phase, counts, **want):
+    """Fails unless each kernel launched exactly as often as `want` says
+    (kernels not named: never)."""
+    for name in COUNTERS:
+        if counts[name] != want.get(name, 0):
+            fail(f"{phase}: expected {want.get(name, 0)} {name} launches, "
+                 f"saw {counts[name]}")
+
+
+class PlainFlash:
+    """Swaps the model's flash attention for an autograd Function over the
+    plain version of the backward and, with `forward`, of the
+    forward-with-logsumexp (else its kernel), inside a `with` block (for
+    holding one train step against the kernels')."""
+
+    def __init__(self, attn_ops, chaos_attention_module, forward=True):
+        import torch
+
+        fwd_lse = (attn_ops.flash_attention_tokens_fwd_lse_reference if forward
+                   else attn_ops.flash_attention_tokens_fwd_lse)
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, heads, temperature):
+                out, lse = fwd_lse(q, k, v, heads, temperature)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.heads, ctx.temperature = heads, temperature
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                grads = attn_ops.flash_attention_tokens_bwd_reference(
+                    *ctx.saved_tensors, dout, ctx.heads, ctx.temperature)
+                return (*grads, None, None)
+
+        self.fn = lambda q, k, v, heads, temperature=1.0: Fn.apply(q, k, v, heads, temperature)
+        self.module = chaos_attention_module
+
+    def __enter__(self):
+        self.saved = self.module.flash_attention_tokens_trainable
+        self.module.flash_attention_tokens_trainable = self.fn
+
+    def __exit__(self, *exc):
+        self.module.flash_attention_tokens_trainable = self.saved
+
+
+def dataset_phase(dev, step_ops, attn_ops):
+    """Generates config_train_fast.yaml's datasets, cut to 64 + 8 episodes,
+    on the card; holds two episodes against the per-op solver."""
+    import numpy as np
+    import torch
+
+    from smokephysai_tpu_torch.data.synthetic import CHUNK_SIZE, create_data_loaders
+    from smokephysai_tpu_torch.physics.simulator import simulate_episode
+    from smokephysai_tpu_torch.utils.config import apply_overrides, load_config
+
+    config = apply_overrides(load_config(TRAIN_CONFIG), [
+        f"data.num_train={TRAIN_NUM}", f"data.num_val={VAL_NUM}", "data.cache_dir=null"])
+    data, tpu = config["data"], config["tpu"]
+    grid, T = tuple(data["grid_size"]), data["sequence_length"]
+    reset_counts(step_ops, attn_ops)
+    t = time.time()
+    train_ds, val_ds = create_data_loaders(
+        batch_size=config["training"]["batch_size"], num_train=TRAIN_NUM,
+        num_val=VAL_NUM, grid_size=grid, cache_dir=None, sequence_length=T,
+        seed=tpu["seed"], use_pallas=tpu["use_pallas"],
+        vorticity_eps=tpu["vorticity_eps"], device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts(step_ops, attn_ops)
+    chunks = -(-TRAIN_NUM // CHUNK_SIZE) + -(-VAL_NUM // CHUNK_SIZE)
+    say(f"dataset: {TRAIN_NUM} + {VAL_NUM} episodes at {grid[0]}x{grid[1]}, T={T}, "
+        f"in {time.time() - t:.2f} s (host clock, first call, chaos labels and the "
+        f"host copy included); launches {counts}")
+    expect_counts("dataset", counts, fused_multi_step=chunks)
+    for ds in (train_ds, val_ds):
+        if not (np.isfinite(ds.data["sequences"]).all() and np.isfinite(ds.data["chaos"]).all()):
+            fail("non-finite episodes or chaos labels")
+    d = train_ds.data
+    sel = [0, 1]
+    params = [torch.from_numpy(d[k][sel]).to(dev)
+              for k in ("source_xy", "source_intensity", "source_active")]
+    plain_seq, plain_lab = simulate_episode(*params, grid_size=grid, num_steps=T,
+                                            use_pallas=False)
+    err = maxerr(plain_seq, torch.from_numpy(d["sequences"][sel]).to(dev))
+    lab_err = maxerr(plain_lab, torch.from_numpy(d["chaos"][sel]).to(dev))
+    say(f"dataset: episodes {sel} vs the per-op solver on the card: sequences "
+        f"max|d| {err:.3e} (bound {EPISODE_ATOL:g}), chaos labels max|d| {lab_err:.3e}; "
+        f"labels of the set: mean {d['chaos'].mean(axis=0).round(4).tolist()}")
+    if not err <= EPISODE_ATOL:
+        fail("generated episodes disagree with the per-op solver")
+    return config, train_ds, val_ds, {"counts": counts, "err": err}
+
+
+def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
+    """10 train steps of the full-width fast recipe with launch counts, one
+    step held against the plain attention, one eval pass, a checkpoint
+    served again."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from smokephysai_tpu_torch.models import chaos_attention as ca_mod
+    from smokephysai_tpu_torch.train import loop
+    from smokephysai_tpu_torch.train.checkpoint import save_checkpoint
+    from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+
+    tc, seed = config["training"], config["tpu"]["seed"]
+    bs = tc["batch_size"]
+    layers = config["model"]["num_layers"]
+    t = time.time()
+    gen = torch.Generator(dev).manual_seed(seed)
+    model = loop.build_train_model(config, dev)
+    torch.cuda.synchronize()
+    built_s = time.time() - t
+    loop.init_parameters(model, gen)
+    steps_per_epoch = max(len(train_ds) // bs, 1)
+    data_gen = torch.Generator().manual_seed(seed)
+    trainer = loop.Trainer(model, config, steps_per_epoch, gen)
+    torch.cuda.synchronize()
+    say(f"train: model built in {built_s:.2f} s, initialised and its optimizer "
+        f"made in {time.time() - t - built_s:.2f} s (hidden "
+        f"{config['model']['hidden_dim']}, {layers} layers, "
+        f"{config['model']['num_heads']} heads, compute {model.dtype}, flash "
+        f"{model.layer_0.chaos_attention.use_flash}, fast_math {model.layer_0.fast_math}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters)")
+
+    def batches():
+        while True:
+            yield from train_ds.epoch_batches(data_gen, bs, shuffle=True)
+
+    it = batches()
+    step_ms, losses, norms = [], [], []
+    total = dict.fromkeys(COUNTERS, 0)
+    for i in range(TRAIN_STEPS):
+        batch = next(it)
+        reset_counts(step_ops, attn_ops)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        metrics = trainer.train_step(batch)
+        b.record()
+        b.synchronize()
+        counts = read_counts(step_ops, attn_ops)
+        expect_counts(f"train step {i}", counts, flash_attention_tokens_fwd_lse=layers,
+                      flash_attention_tokens_bwd=layers)
+        for k in total:
+            total[k] += counts[k]
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(metrics["total_loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    say(f"train: {TRAIN_STEPS} steps at batch {bs}: losses "
+        f"{[round(x, 4) for x in losses]}, gradient norms {[round(x, 3) for x in norms]}, "
+        f"ms {[round(x, 2) for x in step_ms]}; launches per step {counts}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail("non-finite training loss or gradient norm")
+
+    reset_counts(step_ops, attn_ops)
+    val_loss = loop.evaluate(trainer, val_ds, bs, data_gen)
+    torch.cuda.synchronize()
+    eval_counts = read_counts(step_ops, attn_ops)
+    n_val_batches = -(-len(val_ds) // bs)
+    say(f"train: eval pass over {len(val_ds)} episodes: loss {val_loss:.4f}; "
+        f"launches {eval_counts}")
+    expect_counts("eval pass", eval_counts, flash_attention_tokens=layers * n_val_batches)
+    if not math.isfinite(val_loss):
+        fail("non-finite validation loss")
+
+    # one step from the same weights, batch, chaos fields and dropout
+    # stream through the kernels, through the forward kernel and the plain
+    # backward, and through the plain versions of both
+    batch = next(it)
+    fields = model.chaos_fields(trainer.generator, bs, dev)
+    state = copy.deepcopy(model.state_dict())
+    runs = {}
+    for mode in ("kernels", "plain backward", "plain"):
+        twin = loop.build_train_model(config, dev)
+        twin.load_state_dict(state)
+        tw = loop.Trainer(twin, config, steps_per_epoch, torch.Generator(dev).manual_seed(1))
+        tw.step = trainer.step
+        reset_counts(step_ops, attn_ops)
+        if mode == "kernels":
+            m = tw.train_step(batch, chaos_fields=fields)
+        else:
+            with PlainFlash(attn_ops, ca_mod, forward=mode == "plain"):
+                m = tw.train_step(batch, chaos_fields=fields)
+        torch.cuda.synchronize()
+        counts = read_counts(step_ops, attn_ops)
+        # the clipped gradients the optimizer applied, back to their scale
+        clip = min(1.0, 1.0 / float(m["grad_norm"]))
+        proj = {n: p.grad / clip for n, p in twin.named_parameters()
+                if n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight"))}
+        runs[mode] = (float(m["total_loss"]), float(m["grad_norm"]), counts, proj)
+        del twin, tw
+    kl, kn, kc, kg = runs["kernels"]
+    pl, pn, pc, _ = runs["plain"]
+    loss_rel, norm_rel = abs(kl - pl) / abs(pl), abs(kn - pn) / abs(pn)
+    say(f"train: one step, kernels vs plain versions: loss {kl:.6f} vs {pl:.6f} "
+        f"(rel {loss_rel:.3e}, bound {TRAIN_LOSS_RTOL:g}), gradient norm {kn:.5f} vs "
+        f"{pn:.5f} (rel {norm_rel:.3e}, bound {TRAIN_GRAD_NORM_RTOL:g}); launches "
+        f"{kc}, plain backward {runs['plain backward'][2]}, plain {pc}")
+    proj_ok = True
+    for mode, bound in (("plain", TRAIN_PROJ_GRAD_REL_NORM),
+                        ("plain backward", TRAIN_BWD_PROJ_GRAD_REL_NORM)):
+        ref = runs[mode][3]
+        rel = {n: rel_norm(kg[n], ref[n]) for n in ref}
+        worst = max(rel, key=rel.get)
+        say(f"train: q, k, v projection gradients, kernels vs {mode}: {len(rel)} "
+            f"tensors, ||d||/||ref|| median {statistics.median(rel.values()):.3e}, "
+            f"largest {rel[worst]:.3e} ({worst}; bound {bound:.3e}); by layer, q k v: "
+            f"{[float(f'{x:.3e}') for x in rel.values()]}")
+        proj_ok &= len(rel) == 3 * layers and max(rel.values()) <= bound
+    top = [x for n, x in rel.items() if n.startswith(f"layer_{layers - 1}.")]
+    say(f"train: the last layer's q, k, v projection gradients, kernels vs plain "
+        f"backward: largest {max(top):.3e} (bound {TRAIN_BWD_TOP_PROJ_GRAD_REL_NORM:.3e})")
+    proj_ok &= len(top) == 3 and max(top) <= TRAIN_BWD_TOP_PROJ_GRAD_REL_NORM
+    none = dict.fromkeys(COUNTERS, 0)
+    lse_only = none | {"flash_attention_tokens_fwd_lse": layers}
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_GRAD_NORM_RTOL and proj_ok
+            and kc == lse_only | {"flash_attention_tokens_bwd": layers}
+            and runs["plain backward"][2] == lse_only and pc == none):
+        fail("the kernels' train step disagrees with the plain versions'")
+
+    # checkpoint -> npz export -> served again
+    serve_cfg = copy.deepcopy(config)
+    serve_cfg["tpu"]["compute_dtype"] = serve_cfg["tpu"]["train_compute_dtype"]
+    frames = next(iter(val_ds.epoch_batches(data_gen, bs, shuffle=False)))["input"]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, trainer, data_gen,
+                        {"epoch": 0, "val_loss": val_loss, "config": config})
+        served = load_model(serve_cfg, os.path.join(tmp, "best_model.npz"), dev)
+    trained = model.state_dict()
+    same = all(torch.equal(v, trained[k]) for k, v in served.state_dict().items())
+    reset_counts(step_ops, attn_ops)
+    out = make_predictor(served, chaos_seed=seed)(frames)
+    torch.cuda.synchronize()
+    serve_counts = read_counts(step_ops, attn_ops)
+    finite = bool(torch.isfinite(out["reconstructed"]).all()
+                  and torch.isfinite(out["physics_features"]).all())
+    say(f"train: checkpoint served through load_model: weights equal {same}, "
+        f"outputs finite {finite}, launches {serve_counts}")
+    expect_counts("serving the trained checkpoint", serve_counts,
+                  flash_attention_tokens=layers)
+    if not (same and finite):
+        fail("the trained checkpoint does not serve back")
+    del served, out
+    return trainer, it, {"step_ms": step_ms, "counts": total, "losses": losses}
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--trace"]):
@@ -164,31 +533,14 @@ def main():
     # ---------------------------------------------------------------- build
     t = time.time()
     _build.build_all([(step_ops.SOURCE, step_ops.FLAGS),
-                      (attn_ops.SOURCE, attn_ops.FLAGS)])
+                      (attn_ops.SOURCE, attn_ops.FLAGS),
+                      (attn_ops.BWD_SOURCE, attn_ops.FLAGS)])
     build_s = time.time() - t
-    say(f"build: both kernels in {build_s:.2f} s (nvcc, sm_90a, one process each)")
+    say(f"build: three sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {src}: {line.strip()}")
-
-    def timed(fn, runs=20, warmup=3):
-        """Median ms of `runs` calls, each between two CUDA events."""
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(runs):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def maxerr(a, b):
-        return float((a.float() - b.float()).abs().max())
 
     # ---------------------------------------------------------------- kernels
     config = load_config(CONFIG)
@@ -232,6 +584,27 @@ def main():
     if not fused_err4 <= FUSED_ATOL:
         fail("batched fused_step disagrees with its plain version")
 
+    multi_errs = {}
+    for tag, fields in (("x1", fields1), ("x4", fields4)):
+        before = [f.clone() for f in fields]
+        (kfin, ktraj) = step_ops.fused_multi_step(*fields, 20, dt, visc, iters, 1)
+        (pfin, ptraj) = step_ops.fused_multi_step_reference(*fields, 20, dt, visc, iters, 1)
+        s = fields
+        for _ in range(20):  # the single-step kernel, 20 launches
+            s = step_ops.fused_step(*s, dt, visc, iters, 1)
+        torch.cuda.synchronize()
+        err = max(maxerr(ktraj, ptraj), *(maxerr(a, b) for a, b in zip(kfin, pfin)))
+        vs_single = max(maxerr(ktraj[..., -1, :, :], s[3]),
+                        *(maxerr(a, b) for a, b in zip(kfin, s)))
+        unchanged = all(torch.equal(a, b) for a, b in zip(fields, before))
+        multi_errs[tag] = err
+        say(f"kernel fused_multi_step 128^2 {tag} T=20: trajectory {tuple(ktraj.shape)}, "
+            f"max|d| vs plain {err:.3e} (bound {MULTI_ATOL:g}), vs 20 single-step "
+            f"launches {vs_single:.3e} (bound 0), inputs unchanged {unchanged}")
+        if not (err <= MULTI_ATOL and vs_single == 0.0 and unchanged):
+            fail(f"fused_multi_step ({tag}) disagrees with its plain version or "
+                 f"the single-step kernel")
+
     heads = config["model"]["num_heads"]
     width = config["model"]["hidden_dim"]
     flash_errs = {}
@@ -259,6 +632,43 @@ def main():
             fail(f"flash_attention_tokens ({tag}, B={batch}) disagrees with its "
                  f"plain version")
 
+    train_batch = load_config(TRAIN_CONFIG)["training"]["batch_size"]
+    q, k, v, g = (torch.randn(train_batch, 1024, width, generator=gen)
+                  .to(dev, torch.bfloat16) for _ in range(4))
+    o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    ro, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
+    torch.cuda.synchronize()
+    lse_out_err, lse_err = maxerr(o, ro), maxerr(lse, rlse)
+    rel = float(torch.linalg.vector_norm(o.float() - ro.float())
+                / torch.linalg.vector_norm(ro.float()))
+    bound = FLASH_BF16_ULPS * bf16_ulp(float(ro.float().abs().max()))
+    say(f"kernel flash_attention_tokens_fwd_lse B={train_batch} L=1024 D={width} "
+        f"H={heads} bf16: out max|d| {lse_out_err:.3e} (bound {bound:.3e}), "
+        f"||d||/||ref|| {rel:.3e} (bound {FLASH_BF16_REL_NORM:.3e}); lse max|d| "
+        f"{lse_err:.3e} (bound {LSE_ATOL:g}), lse in [{float(rlse.min()):.3f}, "
+        f"{float(rlse.max()):.3f}]")
+    if not (lse_out_err <= bound and rel <= FLASH_BF16_REL_NORM and lse_err <= LSE_ATOL):
+        fail("flash_attention_tokens_fwd_lse disagrees with its plain version")
+    bwd_errs = {}
+    for dtype, rel_bound in ((torch.bfloat16, BWD_BF16_REL_NORM),
+                             (torch.float32, BWD_F32_REL_NORM)):
+        qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, g))
+        od, lsed = attn_ops.flash_attention_tokens_fwd_lse_reference(qd, kd, vd, heads)
+        kg = attn_ops.flash_attention_tokens_bwd(qd, kd, vd, od, lsed, gd, heads)
+        pg = attn_ops.flash_attention_tokens_bwd_reference(qd, kd, vd, od, lsed, gd, heads)
+        torch.cuda.synchronize()
+        tag = str(dtype).replace("torch.", "")
+        rels = [float(torch.linalg.vector_norm(a.float() - b.float())
+                      / torch.linalg.vector_norm(b.float())) for a, b in zip(kg, pg)]
+        bwd_errs[tag] = max(maxerr(a, b) for a, b in zip(kg, pg))
+        say(f"kernel flash_attention_tokens_bwd B={train_batch} L=1024 D={width} "
+            f"H={heads} {tag}: ||d||/||ref|| dq {rels[0]:.3e} dk {rels[1]:.3e} "
+            f"dv {rels[2]:.3e} (bound {rel_bound:.3e}), max|d| {bwd_errs[tag]:.3e}")
+        if not max(rels) <= rel_bound:
+            fail(f"flash_attention_tokens_bwd ({tag}) disagrees with its plain version")
+        del qd, kd, vd, gd, od, lsed, kg, pg
+    del q, k, v, g, o, lse, ro, rlse
+
     # ---------------------------------------------------------------- slice
     if not os.path.exists(CHECKPOINT):
         fail(f"checkpoint {CHECKPOINT} is missing")
@@ -271,24 +681,19 @@ def main():
         f"(compute {model.dtype}, flash {model.layer_0.chaos_attention.use_flash}, "
         f"fast_math {model.layer_0.fast_math})")
 
-    step_ops.LAUNCHES = 0
-    attn_ops.LAUNCHES = 0
+    reset_counts(step_ops, attn_ops)
     t = time.time()
     sequence = inference.generate_test_sequence(simulator, 20)
     inputs = torch.stack(sequence[:-1])[..., None]
     outputs = predict(inputs)
     torch.cuda.synchronize()
     slice_s = time.time() - t
-    launches = {"fused_step": step_ops.LAUNCHES,
-                "flash_attention_tokens": attn_ops.LAUNCHES}
+    launches = read_counts(step_ops, attn_ops)
     say(f"slice: 20 frames + one batched forward of {inputs.shape[0]} in "
         f"{slice_s * 1e3:.1f} ms (host clock, first call); launches {launches}")
-    if launches["fused_step"] != 20:
-        fail(f"expected 20 fused_step launches, saw {launches['fused_step']}")
     expected_flash = config["model"]["num_layers"]
-    if launches["flash_attention_tokens"] != expected_flash:
-        fail(f"expected {expected_flash} flash launches, saw "
-             f"{launches['flash_attention_tokens']}")
+    expect_counts("serving slice", launches, fused_step=20,
+                  flash_attention_tokens=expected_flash)
 
     recon = outputs["reconstructed"]
     phys = outputs["physics_features"]
@@ -328,30 +733,23 @@ def main():
         fail("non-finite MSE")
     del model32, out32
 
+    # ---------------------------------------------------------------- dataset
+    train_config, train_ds, val_ds, data_info = dataset_phase(dev, step_ops, attn_ops)
+
+    # ---------------------------------------------------------------- training
+    trainer, train_batches, train_info = training_phase(
+        train_config, train_ds, val_ds, dev, step_ops, attn_ops)
+
     # ---------------------------------------------------------------- timing
     def step_bound(episodes):
-        h, w = grid
-        nu, nv, nc = (h + 1) * w, h * (w + 1), h * w
-        nbytes = 2 * 4 * (nu + nv + 2 * nc)  # four fields in, four out
-        taps = 3  # max_disp = 1
-        flops = (2 * nc                         # buoyancy
-                 + 7 * (nu + nv + nc)           # diffusion
-                 + 4 * nc                       # divergence
-                 + 5 * nc * iters               # Jacobi
-                 + 3 * ((h - 1) * w + h * (w - 1))  # correction
-                 + (12 + 4 * taps + 7 * taps * taps) * (nu + nv + nc)  # advection
-                 + nc)                          # decay
-        t_bytes = episodes * nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = episodes * flops / F32_FLOPS * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        # four fields in, four out
+        return lower_bound(episodes * 2 * step_bytes(*grid),
+                     episodes * step_flops(*grid, iters), F32_FLOPS)
 
     def flash_bound(batch):
         hd = width // heads
-        flops = 4 * batch * heads * 1024 * 1024 * hd
-        nbytes = 4 * batch * 1024 * width * 2
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return lower_bound(4 * batch * 1024 * width * 2,
+                     4 * batch * heads * 1024 * 1024 * hd, BF16_FLOPS)
 
     timings = {}
     for episodes_n in (1, 64):
@@ -388,9 +786,85 @@ def main():
     step_ms = timed(lambda: simulator.simulate_step())
     say(f"time simulate_step 128^2 (fused kernel + perturbation) on {name}: "
         f"{step_ms:.4f} ms")
+
+    # the training slice's kernels at the training shapes
+    from smokephysai_tpu_torch.physics.simulator import simulate_episode, source_density
+    from smokephysai_tpu_torch.data.synthetic import sample_source_params
+
+    tgrid = tuple(train_config["data"]["grid_size"])
+    T = train_config["data"]["sequence_length"]
+    chunk = sample_source_params(torch.Generator().manual_seed(1), 64, tgrid)
+    chunk = {k: v.to(dev) for k, v in chunk.items()}
+    chunk_ms = timed(lambda: simulate_episode(chunk["xy"], chunk["intensity"],
+                                              chunk["active"], tgrid, T, use_pallas=True),
+                     runs=5, warmup=1)
+    s0 = solver.init_state(tgrid, device=dev, batch=(64,))
+    s0 = s0.replace(density=source_density(chunk["xy"], chunk["intensity"],
+                                           chunk["active"], tgrid))
+    f0 = (s0.u, s0.v, s0.p, s0.density)
+    ms = timed(lambda: step_ops.fused_multi_step(*f0, T, dt, visc, iters, 1), runs=10)
+    plain_ms = timed(lambda: step_ops.fused_multi_step_reference(*f0, T, dt, visc, iters, 1),
+                     runs=3, warmup=1)
+    # the main path's shape, 64 episodes, against the plain version
+    (kfin, ktraj) = step_ops.fused_multi_step(*f0, T, dt, visc, iters, 1)
+    (pfin, ptraj) = step_ops.fused_multi_step_reference(*f0, T, dt, visc, iters, 1)
+    torch.cuda.synchronize()
+    multi_errs["x64"] = max(maxerr(ktraj, ptraj), *(maxerr(a, b) for a, b in zip(kfin, pfin)))
+    say(f"kernel fused_multi_step 128^2 x64 T={T}: max|d| vs plain "
+        f"{multi_errs['x64']:.3e} (bound {MULTI_ATOL:g})")
+    if not multi_errs["x64"] <= MULTI_ATOL:
+        fail("fused_multi_step (x64) disagrees with its plain version")
+    del kfin, ktraj, pfin, ptraj
+    traj_bytes = 64 * T * tgrid[0] * tgrid[1] * 4
+    mb = lower_bound(64 * 2 * step_bytes(*tgrid) + traj_bytes,
+                     64 * T * step_flops(*tgrid, iters), F32_FLOPS)
+    timings["fused_multi_step"] = (ms, plain_ms, *mb)
+    say(f"time fused_multi_step 128^2 x64 T={T} on {name}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {mb[0]:.6f} ms ({mb[1]}); whole 64-episode "
+        f"generation chunk (simulate_episode: sources, kernel, perturbation, chaos "
+        f"labels) {chunk_ms:.4f} ms")
+
+    tb = train_config["training"]["batch_size"]
+    hd = width // heads
+    q, k, v, g = (torch.randn(tb, 1024, width, generator=gen).to(dev, torch.bfloat16)
+                  for _ in range(4))
+    o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.view(tb, 1024, heads, hd).transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gh = g.view(tb, 1024, heads, hd).transpose(1, 2)
+    ms = timed(lambda: attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads))
+    plain_ms = timed(lambda: attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads))
+    lib_ms = timed(lambda: sdpa(qh, kh, vh))
+    fb = lower_bound(4 * tb * 1024 * width * 2 + tb * heads * 1024 * 4,
+                     4 * tb * heads * 1024 * 1024 * hd, BF16_FLOPS)
+    timings["flash_attention_tokens_fwd_lse"] = (ms, plain_ms, *fb, lib_ms)
+    say(f"time flash_attention_tokens_fwd_lse B={tb} L=1024 D={width} H={heads} bf16 "
+        f"on {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA forward "
+        f"(inputs need grad) {lib_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]})")
+    ms = timed(lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads))
+    plain_ms = timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
+        q, k, v, o, lse, g, heads), runs=5)
+    oh = sdpa(qh, kh, vh)
+    lib_ms = timed(lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True))
+    bb = lower_bound(8 * tb * 1024 * width * 2 + tb * heads * 1024 * 4,
+                     10 * tb * heads * 1024 * 1024 * hd, BF16_FLOPS)
+    timings["flash_attention_tokens_bwd"] = (ms, plain_ms, *bb, lib_ms)
+    say(f"time flash_attention_tokens_bwd B={tb} L=1024 D={width} H={heads} bf16 "
+        f"on {name}: kernel {ms:.4f} ms (with the delta reduce, the dq buffer's "
+        f"zeroing and its cast), plain {plain_ms:.4f} ms, SDPA backward (autograd) "
+        f"{lib_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+    del q, k, v, g, o, lse, qh, kh, vh, gh, oh
+    train_ms = statistics.median(train_info["step_ms"][1:])
+    say(f"time train step B={tb} (config_train_fast: bf16, flash, fast_math, full "
+        f"width) on {name}: {train_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}, "
+        f"CUDA events)")
+
     if trace:
         profile(lambda: predict(frames), TRACE_RUNS, f"serving forward B={serve_batch}")
         profile(simulator.simulate_step, 20, "simulate_step 128^2")
+        profile(lambda: trainer.train_step(next(train_batches)), 3,
+                f"train step B={tb}")
 
     # ---------------------------------------------------------------- report
     fs = timings[("fused_step", 1)]
@@ -419,6 +893,34 @@ def main():
             "shape": f"[{serve_batch},1024,{width}] bf16, {heads} heads of 64",
         },
     ]
+    ms_ = timings["fused_multi_step"]
+    kernels.append({
+        "name": "fused_multi_step",
+        "route": "cuda",
+        "source": "smokephysai_tpu_torch/csrc/fused_step.cu",
+        "replaces": "smokephysai_tpu/ops/pallas/fused_step.py:278",
+        "launches": data_info["counts"]["fused_multi_step"],
+        "max_abs_err": max(multi_errs.values()),
+        "ms": ms_[0], "plain_ms": ms_[1], "bound_ms": ms_[2], "bound_by": ms_[3],
+        "library_ms": None,
+        "shape": f"64 episodes x {T} steps at 128^2 f32, trajectory [64,{T},128,128]",
+    })
+    for kname, line, err in (
+            ("flash_attention_tokens_fwd_lse", 315, lse_out_err),
+            ("flash_attention_tokens_bwd", 366, bwd_errs["bfloat16"])):
+        t_ = timings[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "smokephysai_tpu_torch/csrc/" + (
+                "flash_tokens.cu" if kname.endswith("lse") else "flash_bwd.cu"),
+            "replaces": f"smokephysai_tpu/ops/pallas/attention.py:{line}",
+            "launches": train_info["counts"][kname],
+            "max_abs_err": err,
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": t_[4],
+            "shape": f"[{tb},1024,{width}] bf16, {heads} heads of 64",
+        })
     say(f"wall: {time.time() - T0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line)

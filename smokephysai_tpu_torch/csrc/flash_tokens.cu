@@ -4,7 +4,12 @@
 // (_flash_kernel_bld), the serving primal of flash_attention_tokens_trainable:
 // out = softmax(q k^T * scale) v per head, where head h is the column slice
 // [h*64, (h+1)*64) of D, P is cast to v's type before P.V with float32
-// accumulation, and no logsumexp is kept.
+// accumulation, and no logsumexp is kept. The LSE instantiation of the same
+// kernels replaces _flash_tokens_fwd_lse (_flash_fwd_kernel_bld), the
+// training forward: it also writes lse = m + log(l) per row and head,
+// [B, H, L] float32, for the backward (csrc/flash_bwd.cu). The lean
+// instantiation, which the serving path launches, writes no lse and is the
+// same code as before the LSE variant existed.
 //
 // What bounds it on an H100: operations. At the serving shape (B=64,
 // L=1024, D=512, 8 heads) it does 4*B*H*L^2*64 = 137 GFLOP on 268 MB of
@@ -53,11 +58,13 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+template <bool LSE>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int L, int D, float scale) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int L, int D, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + TILE_BYTES);
@@ -163,12 +170,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       p2[t] = __floats2bfloat162_rn(acc[c + 2 * t] / l, acc[c + 2 * t + 1] / l);
     *reinterpret_cast<uint4*>(dst + c) = packed;
   }
+  if (LSE && half == 0)
+    lse[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * L + q0 + warp * 16 + r] =
+        m + logf(l);
 }
 
+template <bool LSE>
 __global__ void __launch_bounds__(BQ)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int L,
-                 int D, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int L, int D, float scale) {
   __shared__ float sK[BK][HD];
   __shared__ float sV[BK][HD];
   const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
@@ -213,34 +224,46 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 #pragma unroll
   for (int c = 0; c < HD; ++c) o[base + (size_t)row * D + c] = acc[c] / l;
+  if (LSE) lse[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * L + row] = m + logf(l);
+}
+
+template <bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int L, int heads, int D, float scale, int dtype,
+           cudaStream_t st) {
+  dim3 grid(L / BQ, heads, B);
+  if (dtype == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bf16_kernel<LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BF16);
+    if (err != cudaSuccess) return (int)err;
+    flash_bf16_kernel<LSE><<<grid, WARPS * 32, SMEM_BF16, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, L, D, scale);
+  } else if (dtype == 1) {
+    flash_f32_kernel<LSE><<<grid, BQ, 0, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, L,
+        D, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32. Needs head_dim 64 (D = 64 * heads) and
 // L a multiple of 64; q, k, v, o contiguous [B, L, D], 16-byte aligned.
+// lse: null for the lean (serving) kernel, else [B, heads, L] float32.
 extern "C" int flash_tokens_fwd(const void* q, const void* k, const void* v,
-                                void* o, int B, int L, int D, int heads,
-                                float scale, int dtype, void* stream) {
+                                void* o, void* lse, int B, int L, int D,
+                                int heads, float scale, int dtype,
+                                void* stream) {
   if (B <= 0 || L <= 0 || L % BQ != 0 || heads <= 0 || D != heads * HD ||
       B > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(L / BQ, heads, B);
-  if (dtype == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BF16);
-    if (err != cudaSuccess) return (int)err;
-    flash_bf16_kernel<<<grid, WARPS * 32, SMEM_BF16, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, L, D, scale);
-  } else if (dtype == 1) {
-    flash_f32_kernel<<<grid, BQ, 0, st>>>((const float*)q, (const float*)k,
-                                          (const float*)v, (float*)o, L, D,
-                                          scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (lse == nullptr)
+    return launch<false>(q, k, v, o, nullptr, B, L, heads, D, scale, dtype, st);
+  return launch<true>(q, k, v, o, (float*)lse, B, L, heads, D, scale, dtype, st);
 }

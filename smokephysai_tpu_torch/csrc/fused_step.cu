@@ -1,7 +1,10 @@
-// One whole smoke-solver step in one kernel launch.
+// One whole smoke-solver step in one kernel launch, and a whole episode of
+// steps in one launch.
 //
 // Replaces: smokephysai_tpu/ops/pallas/fused_step.py, fused_step_pallas
-// (_fused_step_kernel -> _step_vals): buoyancy on v[:, :-1], replicate-pad
+// (_fused_step_kernel -> _step_vals) and fused_multi_step_pallas
+// (_fused_multi_step_kernel, vmapped over episodes by the dataset
+// generator): buoyancy on v[:, :-1], replicate-pad
 // diffusion of u, v and density, divergence, warm-started zero-Dirichlet
 // Jacobi sweeps, interior velocity correction, sequential tent-shift
 // advection (u, then v with the new u, then density with both) and the
@@ -22,6 +25,13 @@
 // advection writes straight into its output. Buffers written inside the
 // kernel are read with plain loads (no __ldg / restrict), so a thread sees
 // what other threads of its block wrote before the barrier.
+//
+// The multi-step kernel loops the same step body over `steps` inside one
+// launch (one block per episode again, so a 64-episode chunk fills 64 of
+// the 132 SMs) and copies each step's density to traj[episode, t]: the
+// [N, T, H, W] layout of the vmapped JAX call. Its state ping-pongs between
+// the output tensors and a second set in scratch, so the inputs are never
+// written and the last step lands in the outputs.
 //
 // Rounding: built with -fmad=false and with the operations in the order
 // the TPU kernel writes them, so each stage rounds as the plain PyTorch
@@ -96,24 +106,17 @@ __device__ void advect(const float* field, int fh, int fw, const float* u,
   }
 }
 
+// One whole step of one episode, by the whole block: reads (u0, v0, p0,
+// d0), writes (uo, vo, po, dout), which must not alias the inputs, and uses
+// `step_scratch` ((h+1)w + h(w+1) + 3hw floats). Ends without a barrier.
 template <int D>
-__global__ void __launch_bounds__(1024)
-fused_step_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
-                  const float* __restrict__ p_in, const float* __restrict__ d_in,
-                  float* u_out, float* v_out, float* p_out, float* d_out,
-                  float* scratch, Fields s, int iters) {
+__device__ void step_body(const float* u0, const float* v0, const float* p0,
+                          const float* d0, float* uo, float* vo, float* po,
+                          float* dout, float* step_scratch, const Fields& s,
+                          int iters) {
   const int h = s.h, w = s.w;
   const int nu = (h + 1) * w, nv = h * (w + 1), nc = h * w;
-  const long e = blockIdx.x;
-  const float* u0 = u_in + e * nu;
-  const float* v0 = v_in + e * nv;
-  const float* p0 = p_in + e * nc;
-  const float* d0 = d_in + e * nc;
-  float* uo = u_out + e * nu;
-  float* vo = v_out + e * nv;
-  float* po = p_out + e * nc;
-  float* dout = d_out + e * nc;
-  float* su = scratch + e * (long)(nu + nv + 3 * nc);
+  float* su = step_scratch;
   float* sv = su + nu;
   float* sd = sv + nv;
   float* div = sd + nc;
@@ -177,6 +180,67 @@ fused_step_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
   advect<D>(sd, h, w, uo, w, vo, h, w + 1, s.dt, 0.995f, dout);
 }
 
+__host__ __device__ inline long step_scratch_floats(int h, int w) {
+  return (long)(h + 1) * w + (long)h * (w + 1) + 3L * h * w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(1024)
+fused_step_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
+                  const float* __restrict__ p_in, const float* __restrict__ d_in,
+                  float* u_out, float* v_out, float* p_out, float* d_out,
+                  float* scratch, Fields s, int iters) {
+  const int h = s.h, w = s.w;
+  const long nu = (h + 1) * w, nv = h * (w + 1), nc = h * w;
+  const long e = blockIdx.x;
+  step_body<D>(u_in + e * nu, v_in + e * nv, p_in + e * nc, d_in + e * nc,
+               u_out + e * nu, v_out + e * nv, p_out + e * nc, d_out + e * nc,
+               scratch + e * step_scratch_floats(h, w), s, iters);
+}
+
+// `steps` whole steps of one episode per block (fused_multi_step_pallas).
+// The state ping-pongs between the outputs and a second set in scratch,
+// chosen so that the last step writes the outputs; the inputs are only
+// read. After each step the density goes to traj[e, t].
+template <int D>
+__global__ void __launch_bounds__(1024)
+fused_multi_step_kernel(const float* u_in, const float* v_in, const float* p_in,
+                        const float* d_in, float* u_out, float* v_out,
+                        float* p_out, float* d_out, float* traj, float* scratch,
+                        Fields s, int iters, int steps) {
+  const int h = s.h, w = s.w;
+  const long nu = (h + 1) * w, nv = h * (w + 1), nc = h * w;
+  const long e = blockIdx.x;
+  float* step_scratch = scratch + e * (step_scratch_floats(h, w) + nu + nv + 2 * nc);
+  float* ua = step_scratch + step_scratch_floats(h, w);
+  float* va = ua + nu;
+  float* pa = va + nv;
+  float* da = pa + nc;
+  float* uo = u_out + e * nu;
+  float* vo = v_out + e * nv;
+  float* po = p_out + e * nc;
+  float* dout = d_out + e * nc;
+  const float* cu = u_in + e * nu;
+  const float* cv = v_in + e * nv;
+  const float* cp = p_in + e * nc;
+  const float* cd = d_in + e * nc;
+  for (int t = 0; t < steps; ++t) {
+    const bool to_out = ((steps - 1 - t) & 1) == 0;
+    float* nu_ = to_out ? uo : ua;
+    float* nv_ = to_out ? vo : va;
+    float* np_ = to_out ? po : pa;
+    float* nd_ = to_out ? dout : da;
+    step_body<D>(cu, cv, cp, cd, nu_, nv_, np_, nd_, step_scratch, s, iters);
+    __syncthreads();
+    float* tr = traj + (e * steps + t) * nc;
+    for (long idx = threadIdx.x; idx < nc; idx += blockDim.x) tr[idx] = nd_[idx];
+    cu = nu_;
+    cv = nv_;
+    cp = np_;
+    cd = nd_;
+  }
+}
+
 }  // namespace
 
 // Launch one solver step for `episodes` independent states laid out one
@@ -199,6 +263,32 @@ extern "C" int fused_step_launch(const void* u, const void* v, const void* p,
   switch (max_disp) {
     case 1: args(fused_step_kernel<1>); break;
     case 2: args(fused_step_kernel<2>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch `steps` solver steps for `episodes` states in one kernel; traj is
+// [episodes, steps, h, w]. scratch holds episodes * (2(h+1)w + 2h(w+1) + 5hw)
+// floats (a step's scratch plus the second state set).
+extern "C" int fused_multi_step_launch(
+    const void* u, const void* v, const void* p, const void* d, void* u_out,
+    void* v_out, void* p_out, void* d_out, void* traj, void* scratch,
+    int episodes, int h, int w, int iters, int max_disp, int steps, float dt,
+    float buoy, float coef_uv, float coef_d, void* stream) {
+  if (episodes <= 0 || h < 2 || w < 2 || iters < 0 || steps < 1)
+    return (int)cudaErrorInvalidValue;
+  Fields s{h, w, dt, buoy, coef_uv, coef_d};
+  cudaStream_t st = (cudaStream_t)stream;
+  auto args = [&](auto kernel) {
+    kernel<<<episodes, 1024, 0, st>>>(
+        (const float*)u, (const float*)v, (const float*)p, (const float*)d,
+        (float*)u_out, (float*)v_out, (float*)p_out, (float*)d_out,
+        (float*)traj, (float*)scratch, s, iters, steps);
+  };
+  switch (max_disp) {
+    case 1: args(fused_multi_step_kernel<1>); break;
+    case 2: args(fused_multi_step_kernel<2>); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.attention import flash_attention_tokens
+from ..ops.attention import flash_attention_tokens_trainable
 from .layers import Linear
 
 Tensor = torch.Tensor
@@ -108,8 +108,10 @@ class ChaosAttention(nn.Module):
         q_eff = q + self.strength * gate * feats
 
         if self.use_flash:
-            out = flash_attention_tokens(q_eff.contiguous(), k.contiguous(),
-                                         v.contiguous(), h)
+            # the lean kernel when nothing needs a gradient (serving, eval),
+            # the forward-with-logsumexp and backward kernels when training
+            out = flash_attention_tokens_trainable(
+                q_eff.contiguous(), k.contiguous(), v.contiguous(), h)
             return self.out_proj(out).to(self.out_dtype)
 
         split = lambda t: t.reshape(B, L, h, hd).transpose(1, 2)

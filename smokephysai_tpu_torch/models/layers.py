@@ -1,7 +1,9 @@
-"""Layers with the numerics of the JAX package's flax layers in eval mode.
+"""Layers with the numerics of the JAX package's flax layers.
 
 Parameters are float32 and cast to the compute `dtype` at use, as the flax
-layers do. Convolutions and their BatchNorms take NCHW.
+layers do. Convolutions and their BatchNorms take NCHW. `BatchNorm`
+follows `self.training` as flax's `use_running_average=not train` does;
+`dropout` draws its mask from an explicit generator.
 """
 from __future__ import annotations
 
@@ -59,14 +61,19 @@ class ConvTranspose2x(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d with running statistics (eval only), computed as flax
-    does: (x - mean) * (rsqrt(var + eps) * scale) + bias, in float32.
+    """BatchNorm2d computed as flax's `nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`: (x - mean) * (rsqrt(var + eps) * scale) + bias, in
+    float32.
 
-    `running_var` holds the JAX package's `batch_stats` var as it is. flax
-    updates it with the biased batch variance where torch's BatchNorm2d uses
-    the unbiased one, so the two frameworks' training would drift apart in
-    this buffer; in eval both just read it.
+    Eval (`self.training` False) reads the running statistics. Training
+    normalises with the batch's statistics over (N, H, W) in float32, the
+    variance biased and computed as E[x^2] - E[x]^2 clamped at 0 (flax's
+    fast variance), gradients flowing through both; it then updates the
+    running statistics as flax does, ra = 0.9 ra + 0.1 batch, with that
+    biased variance (torch's BatchNorm2d would store the unbiased one).
     """
+
+    MOMENTUM = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -78,9 +85,28 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean.view(shape)) * mul.view(shape) \
-            + self.bias.view(shape)
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            mean2 = (x * x).mean(dim=(0, 2, 3))
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+def dropout(x: Tensor, rate: float, generator: torch.Generator) -> Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate (a
+    uniform draw from `generator` below it) and scale the kept ones by
+    1 / (1 - rate). The generator must live on x's device."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LayerNorm(nn.Module):

@@ -1,6 +1,10 @@
 """SmokePhysNet: CNN encoder -> chaos-gated transformer -> reconstruction and
-physics-feature heads. Eval mode only (no dropout, running BatchNorm
-statistics).
+physics-feature heads.
+
+`self.training` plays the JAX model's `train` flag: in training mode the
+four BatchNorms normalise with batch statistics (and update their running
+ones) and each transformer layer applies dropout 0.1 after the GELU and
+after `ffn_out`, with masks drawn from the generator passed to `forward`.
 
 Counterpart of the JAX package's `models/net.py`, with the same parameter
 names, so `models/convert.py` maps the JAX variables one to one. NHWC
@@ -22,21 +26,24 @@ import torch.nn.functional as F
 
 from ..ops.image import adaptive_avg_pool2d, interpolate_bilinear
 from .chaos_attention import ChaosAttention, chaos_fields
-from .layers import BatchNorm, Conv, ConvTranspose2x, LayerNorm, Linear
+from .layers import BatchNorm, Conv, ConvTranspose2x, LayerNorm, Linear, dropout
 
 Tensor = torch.Tensor
 
 TOKEN_GRID = 32  # the trunk's token grid is 32 x 32
+DROPOUT = 0.1  # the FFN's dropout rate in training mode
 
 
 class ChaosTransformerLayer(nn.Module):
-    """Pre-LN block: x += ChaosAttn(LN(x)); x += FFN(LN(x))."""
+    """Pre-LN block: x += ChaosAttn(LN(x)); x += FFN(LN(x)), with dropout
+    after the GELU and after `ffn_out` in training mode."""
 
     def __init__(self, dim: int, num_heads: int, chaos_strength: float = 0.1,
                  dtype=torch.float32, fast_math: bool = False,
                  use_flash: bool = False):
         super().__init__()
         self.fast_math = fast_math
+        self.dropout = DROPOUT
         self.res_dtype = dtype if fast_math else torch.float32
         self.chaos_attention = ChaosAttention(
             dim, num_heads, chaos_strength, dtype=dtype,
@@ -47,12 +54,22 @@ class ChaosTransformerLayer(nn.Module):
         self.ffn_in = Linear(dim, 4 * dim, dtype)
         self.ffn_out = Linear(4 * dim, dim, dtype)
 
-    def forward(self, x: Tensor, field: Tensor) -> Tensor:
+    def forward(self, x: Tensor, field: Tensor,
+                generator: torch.Generator | None = None) -> Tensor:
+        """`generator` draws the dropout masks (training mode only)."""
+        drop = self.training and self.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("ChaosTransformerLayer: training-mode dropout "
+                             "needs a generator")
         x = x.to(self.res_dtype)
         x = x + self.chaos_attention(self.norm1(x), field)
         y = self.ffn_in(self.norm2(x))
         y = F.gelu(y, approximate="tanh" if self.fast_math else "none")
+        if drop:
+            y = dropout(y, self.dropout, generator)
         y = self.ffn_out(y).to(self.res_dtype)
+        if drop:
+            y = dropout(y, self.dropout, generator)
         return x + y
 
 
@@ -107,9 +124,10 @@ class SmokePhysNet(nn.Module):
                                                   self.hidden_dim)
         return feats + pos
 
-    def trunk(self, feats: Tensor, fields: Sequence[Tensor]) -> Tensor:
+    def trunk(self, feats: Tensor, fields: Sequence[Tensor],
+              generator: torch.Generator | None = None) -> Tensor:
         for layer, field in zip(self.layers, fields):
-            feats = layer(feats, field)
+            feats = layer(feats, field, generator)
         return feats.float()
 
     def decode(self, feats: Tensor, in_hw, return_features: bool = False) -> Dict:
@@ -142,7 +160,8 @@ class SmokePhysNet(nn.Module):
                 chaos_fields: Sequence[Tensor] | None = None,
                 return_features: bool = False) -> Dict:
         """x: NHWC [B, H, W, 1]. The per-layer chaos fields come from
-        `chaos_fields` when given, else from `generator`."""
+        `chaos_fields` when given, else from `generator`; in training mode
+        the dropout masks come from `generator` after them."""
         if chaos_fields is None:
             if generator is None:
                 raise ValueError("SmokePhysNet: pass a generator or chaos_fields")
@@ -151,5 +170,6 @@ class SmokePhysNet(nn.Module):
             raise ValueError(f"SmokePhysNet: {len(chaos_fields)} chaos fields "
                              f"for {self.num_layers} layers")
         feats = self.encode(x.permute(0, 3, 1, 2))
-        feats = self.trunk(feats, [f.to(x.device, torch.float32) for f in chaos_fields])
+        feats = self.trunk(feats, [f.to(x.device, torch.float32) for f in chaos_fields],
+                           generator)
         return self.decode(feats, x.shape[1:3], return_features)

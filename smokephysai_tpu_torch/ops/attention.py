@@ -1,14 +1,26 @@
-"""Token-major flash attention forward (csrc/flash_tokens.cu) and its plain
-version.
+"""Token-major flash attention (csrc/flash_tokens.cu, csrc/flash_bwd.cu) and
+the plain versions of its three kernels.
 
 Layout as in the JAX package's `flash_attention_tokens`: q, k, v and the
 output are [B, L, D] with D = heads * head_dim, head h being the column
 slice [h*hd, (h+1)*hd); scale = 1 / (sqrt(hd) * temperature). The
 probabilities are cast to v's type before P.V, which accumulates in float32.
+
+- `flash_attention_tokens`: the lean forward (serving; no logsumexp).
+- `flash_attention_tokens_fwd_lse`: the training forward, which also
+  returns the per-head logsumexp [B, H, L] float32.
+- `flash_attention_tokens_bwd`: dq, dk, dv from the forward's output and
+  logsumexp (the JAX package's fused `_flash_trainable_bwd`).
+- `flash_attention_tokens_trainable`: the autograd Function over the pair,
+  which takes the lean forward when no input needs a gradient.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version for CPU tensors only.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -17,87 +29,262 @@ from . import _build
 Tensor = torch.Tensor
 
 SOURCE = "flash_tokens.cu"
+BWD_SOURCE = "flash_bwd.cu"
 FLAGS = ()
-HEAD_DIM = 64  # the kernel's head dim
-BLOCK = 64  # the kernel's query and key tile
+HEAD_DIM = 64  # the kernels' head dim
+BLOCK = 64  # the kernels' query and key tile
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
+# kernel launches since the last reset (read by chip_smoke.py)
+LAUNCHES = 0  # lean forward
+LSE_LAUNCHES = 0  # forward with logsumexp
+BWD_LAUNCHES = 0  # backward
 
 
 def _scale(head_dim: int, temperature: float) -> float:
     return 1.0 / (float(head_dim) ** 0.5 * temperature)
 
 
+def _split(t: Tensor, num_heads: int) -> Tensor:
+    """[B, L, D] -> [B, H, L, hd] float32."""
+    B, L, D = t.shape
+    return t.reshape(B, L, num_heads, D // num_heads).transpose(1, 2).float()
+
+
+def _merge(t: Tensor, dtype) -> Tensor:
+    """[B, H, L, hd] -> [B, L, D] in `dtype`."""
+    B, H, L, hd = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * hd).to(dtype)
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def flash_attention_tokens_fwd_lse_reference(
+    q: Tensor, k: Tensor, v: Tensor, num_heads: int, temperature: float = 1.0,
+) -> Tuple[Tensor, Tensor]:
+    """Plain version of the forward: per-head softmax(q k^T * scale) v in
+    float32, with the unnormalised probabilities cast to v's type before P.V
+    and the row sum taken in float32, as the TPU kernel does. Returns
+    (out [B, L, D] in q's type, lse [B, H, L] float32)."""
+    hd = q.shape[-1] // num_heads
+    s = torch.einsum("bhid,bhjd->bhij", _split(q, num_heads),
+                     _split(k, num_heads)) * _scale(hd, temperature)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhij,bhjd->bhid", p.to(v.dtype).float(),
+                       _split(v, num_heads)) / l
+    return _merge(out, q.dtype), (m + torch.log(l))[..., 0]
+
+
 def flash_attention_tokens_reference(
     q: Tensor, k: Tensor, v: Tensor, num_heads: int, temperature: float = 1.0,
 ) -> Tensor:
-    """Plain version: per-head softmax(q k^T * scale) v in float32, with the
-    unnormalised probabilities cast to v's type before P.V and the row sum
-    taken in float32, as the TPU kernel does."""
-    B, L, D = q.shape
-    hd = D // num_heads
-    split = lambda t: t.reshape(B, L, num_heads, hd).transpose(1, 2).float()
-    s = torch.einsum("bhid,bhjd->bhij", split(q), split(k)) * _scale(hd, temperature)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhij,bhjd->bhid", p.to(v.dtype).float(), split(v)) / l
-    return out.transpose(1, 2).reshape(B, L, D).to(q.dtype)
+    """Plain version of the lean forward (the output of
+    `flash_attention_tokens_fwd_lse_reference`)."""
+    return flash_attention_tokens_fwd_lse_reference(q, k, v, num_heads, temperature)[0]
+
+
+def flash_attention_tokens_bwd_reference(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
+    num_heads: int, temperature: float = 1.0,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of the backward, as the fused TPU kernel computes it:
+    P = exp(S - lse), dS = P (dP - delta) scale with delta = rowsum(dO O)
+    per head; P cast to v's type before P^T dO, dS to q's type before dS k
+    and dS^T q; dq, dk, dv returned in q's, k's and v's types."""
+    hd = q.shape[-1] // num_heads
+    scale = _scale(hd, temperature)
+    qh, kh, vh, doh = (_split(t, num_heads) for t in (q, k, v, dout))
+    delta = (doh * _split(out, num_heads)).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.einsum("bhid,bhjd->bhij", qh, kh) * scale - lse[..., None])
+    dp = torch.einsum("bhid,bhjd->bhij", doh, vh)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhij,bhjd->bhid", ds, kh)
+    dk = torch.einsum("bhij,bhid->bhjd", ds, qh)
+    dv = torch.einsum("bhij,bhid->bhjd", p.to(v.dtype).float(), doh)
+    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
+
+
+# ---------------------------------------------------------------- the kernels
 
 
 def _lib():
     return _build.load(SOURCE, FLAGS, {
-        "flash_tokens_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        "flash_tokens_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     })
+
+
+def _bwd_lib():
+    return _build.load(BWD_SOURCE, FLAGS, {
+        "flash_tokens_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    })
+
+
+def _check_qkv(name: str, q: Tensor, k: Tensor, v: Tensor, num_heads: int):
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{name}: q, k, v must share one [B, L, D] shape, "
+                         f"got {q.shape}, {k.shape}, {v.shape}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{name}: q, k, v must share a dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v must share a device")
+    D = q.shape[-1]
+    if num_heads <= 0 or D % num_heads:
+        raise ValueError(f"{name}: D={D} not divisible by {num_heads} heads")
+
+
+def _check_launch(name: str, num_heads: int, *tensors: Tensor):
+    """What the kernels take: CUDA, bf16 or float32, head_dim 64, L a
+    multiple of 64, contiguous and 16-byte aligned."""
+    q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        f"(bfloat16 or float32)")
+    B, L, D = q.shape
+    hd = D // num_heads
+    if hd != HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {hd}, the kernel takes {HEAD_DIM}")
+    if L % BLOCK:
+        raise ValueError(f"{name}: L={L} is not a multiple of {BLOCK}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def _launch_fwd(q: Tensor, k: Tensor, v: Tensor, num_heads: int,
+                temperature: float, with_lse: bool):
+    B, L, D = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, num_heads, L, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().flash_tokens_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        B, L, D, num_heads, _scale(D // num_heads, temperature),
+        _DTYPE_CODE[q.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash attention forward kernel launch failed: "
+                           f"cudaError {rc}")
+    return out, lse
 
 
 def flash_attention_tokens(
     q: Tensor, k: Tensor, v: Tensor, num_heads: int, temperature: float = 1.0,
 ) -> Tensor:
-    """Multi-head attention on token-major [B, L, D]. CUDA tensors launch the
-    kernel (bf16 or float32, head_dim 64, L a multiple of 64); CPU tensors
-    take `flash_attention_tokens_reference`."""
+    """Multi-head attention on token-major [B, L, D], forward only. CUDA
+    tensors launch the lean kernel (bf16 or float32, head_dim 64, L a
+    multiple of 64); CPU tensors take `flash_attention_tokens_reference`.
+    The kernel's output has no gradient, so a CUDA call that would need one
+    raises: use `flash_attention_tokens_trainable` there."""
     global LAUNCHES
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash_attention_tokens: q, k, v must share one "
-                         f"[B, L, D] shape, got {q.shape}, {k.shape}, {v.shape}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_attention_tokens: q, k, v must share a dtype")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_tokens: q, k, v must share a device")
-    B, L, D = q.shape
-    if num_heads <= 0 or D % num_heads:
-        raise ValueError(f"flash_attention_tokens: D={D} not divisible by "
-                         f"{num_heads} heads")
+    _check_qkv("flash_attention_tokens", q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_tokens_reference(q, k, v, num_heads, temperature)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_tokens: unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention_tokens: dtype {q.dtype} not supported "
-                        f"(bfloat16 or float32)")
-    hd = D // num_heads
-    if hd != HEAD_DIM:
-        raise ValueError(f"flash_attention_tokens: head_dim {hd}, the kernel "
-                         f"takes {HEAD_DIM}")
-    if L % BLOCK:
-        raise ValueError(f"flash_attention_tokens: L={L} is not a multiple "
-                         f"of {BLOCK}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_tokens: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_tokens: {name} must be 16-byte aligned")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().flash_tokens_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, L, D, num_heads, _scale(hd, temperature), _DTYPE_CODE[q.dtype],
-        stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_tokens kernel launch failed: "
-                           f"cudaError {rc}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_tokens: an input needs a gradient, "
+                           "which the lean kernel cannot give; call "
+                           "flash_attention_tokens_trainable")
+    _check_launch("flash_attention_tokens", num_heads, q, k, v)
+    out, _ = _launch_fwd(q, k, v, num_heads, temperature, with_lse=False)
     LAUNCHES += 1
     return out
+
+
+def flash_attention_tokens_fwd_lse(
+    q: Tensor, k: Tensor, v: Tensor, num_heads: int, temperature: float = 1.0,
+) -> Tuple[Tensor, Tensor]:
+    """The training forward: (out [B, L, D], lse [B, H, L] float32). CUDA
+    tensors launch the LSE instantiation of the forward kernel; CPU tensors
+    take `flash_attention_tokens_fwd_lse_reference`."""
+    global LSE_LAUNCHES
+    _check_qkv("flash_attention_tokens_fwd_lse", q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_tokens_fwd_lse_reference(q, k, v, num_heads,
+                                                        temperature)
+    _check_launch("flash_attention_tokens_fwd_lse", num_heads, q, k, v)
+    out, lse = _launch_fwd(q, k, v, num_heads, temperature, with_lse=True)
+    LSE_LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_tokens_bwd(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
+    num_heads: int, temperature: float = 1.0,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of `flash_attention_tokens_fwd_lse`. CUDA tensors launch
+    the backward kernel after one PyTorch reduce for delta = rowsum(dO O)
+    per head (dq is summed in float32 by the kernel and cast to q's type);
+    CPU tensors take `flash_attention_tokens_bwd_reference`."""
+    global BWD_LAUNCHES
+    _check_qkv("flash_attention_tokens_bwd", q, k, v, num_heads)
+    B, L, D = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("flash_attention_tokens_bwd: out and dout must have "
+                         "q's shape")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError("flash_attention_tokens_bwd: out and dout must have "
+                        "q's dtype")
+    if lse.shape != (B, num_heads, L) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_tokens_bwd: lse must be float32 "
+                         f"[{B}, {num_heads}, {L}]")
+    if q.device.type == "cpu":
+        return flash_attention_tokens_bwd_reference(q, k, v, out, lse, dout,
+                                                    num_heads, temperature)
+    _check_launch("flash_attention_tokens_bwd", num_heads, q, k, v, out, dout, lse)
+    delta = (dout.float() * out.float()).view(B, L, num_heads, D // num_heads) \
+        .sum(dim=-1).transpose(1, 2).contiguous()
+    dq = torch.zeros(B, L, D, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_lib().flash_tokens_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, L, D, num_heads, _scale(D // num_heads, temperature),
+        _DTYPE_CODE[q.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: "
+                           f"cudaError {rc}")
+    BWD_LAUNCHES += 1
+    return dq.to(q.dtype), dk, dv
+
+
+class FlashAttentionTokens(torch.autograd.Function):
+    """Forward with logsumexp, backward by `flash_attention_tokens_bwd`
+    (the counterpart of the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, temperature):
+        out, lse = flash_attention_tokens_fwd_lse(q, k, v, num_heads, temperature)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.temperature = num_heads, temperature
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_tokens_bwd(
+            q, k, v, out, lse, dout.contiguous(), ctx.num_heads, ctx.temperature)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_tokens_trainable(
+    q: Tensor, k: Tensor, v: Tensor, num_heads: int, temperature: float = 1.0,
+) -> Tensor:
+    """`flash_attention_tokens` with a backward: when an input needs a
+    gradient, the forward-with-logsumexp kernel and the backward kernel
+    (`FlashAttentionTokens`); otherwise the lean forward, as the JAX
+    package's primal does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionTokens.apply(q, k, v, num_heads, temperature)
+    return flash_attention_tokens(q, k, v, num_heads, temperature)

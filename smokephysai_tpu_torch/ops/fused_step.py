@@ -1,10 +1,13 @@
-"""Fused whole-step solver kernel (csrc/fused_step.cu) and its plain version.
+"""Fused solver kernels (csrc/fused_step.cu) and their plain versions.
 
 `fused_step` runs one solver step (buoyancy, diffusion, projection,
 advection, decay) in one kernel launch for a CUDA state, and
 `fused_step_reference` on a CPU state. Both reproduce the JAX package's
 `fused_step_pallas` (`_step_vals`), stage by stage and in the same order of
-floating-point operations. A leading batch of episodes is allowed.
+floating-point operations. `fused_multi_step` runs a whole episode of steps
+in one launch (`fused_multi_step_pallas`) and returns the density
+trajectory; its plain version is a loop of `fused_step_reference`. A
+leading batch of episodes is allowed.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ FLAGS = ("-fmad=false",)
 MAX_DISP = (1, 2)  # tap radii compiled into the kernel
 
 LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
+MULTI_LAUNCHES = 0  # fused_multi_step launches, likewise
 
 
 def _coefs(dt: float, viscosity: float):
@@ -152,6 +156,8 @@ def _lib():
     floats = [ctypes.c_float] * 4
     return _build.load(SOURCE, FLAGS, {
         "fused_step_launch": ptrs + ints + floats + [ctypes.c_void_p],
+        "fused_multi_step_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + floats + [ctypes.c_void_p],
     })
 
 
@@ -174,6 +180,75 @@ def _check(u: Tensor, v: Tensor, p: Tensor, density: Tensor):
         raise ValueError("fused_step: grid must be at least 2x2")
 
 
+def fused_multi_step_reference(
+    u: Tensor, v: Tensor, p: Tensor, density: Tensor, num_steps: int,
+    dt: float, viscosity: float,
+    num_jacobi_iters: int = 20, max_disp: int = 1,
+) -> Tuple[Tuple[Tensor, Tensor, Tensor, Tensor], Tensor]:
+    """Plain version of the multi-step kernel: `num_steps` calls of
+    `fused_step_reference`. Returns the final (u, v, p, density) and the
+    density after each step, [..., num_steps, H, W]."""
+    traj = []
+    for _ in range(num_steps):
+        u, v, p, density = fused_step_reference(u, v, p, density, dt, viscosity,
+                                                num_jacobi_iters, max_disp)
+        traj.append(density)
+    return (u, v, p, density), torch.stack(traj, dim=-3)
+
+
+def _check_launch(name: str, density: Tensor, max_disp: int, num_jacobi_iters: int):
+    if density.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {density.device}")
+    if max_disp not in MAX_DISP:
+        raise ValueError(f"{name}: max_disp must be one of {MAX_DISP}")
+    if num_jacobi_iters < 0:
+        raise ValueError(f"{name}: num_jacobi_iters must be >= 0")
+    h, w = density.shape[-2], density.shape[-1]
+    episodes = density.numel() // (h * w)
+    if episodes == 0:
+        raise ValueError(f"{name}: empty batch")
+    return h, w, episodes
+
+
+def fused_multi_step(
+    u: Tensor, v: Tensor, p: Tensor, density: Tensor, num_steps: int,
+    dt: float, viscosity: float,
+    num_jacobi_iters: int = 20, max_disp: int = 1,
+) -> Tuple[Tuple[Tensor, Tensor, Tensor, Tensor], Tensor]:
+    """`num_steps` solver steps. CUDA tensors launch the multi-step kernel
+    once (one block per episode of the leading batch); CPU tensors take
+    `fused_multi_step_reference`. Returns the final (u, v, p, density) and
+    the trajectory [..., num_steps, H, W]; the inputs are not modified."""
+    global MULTI_LAUNCHES
+    _check(u, v, p, density)
+    if num_steps < 1:
+        raise ValueError("fused_multi_step: num_steps must be >= 1")
+    if density.device.type == "cpu":
+        return fused_multi_step_reference(u, v, p, density, num_steps, dt,
+                                          viscosity, num_jacobi_iters, max_disp)
+    h, w, episodes = _check_launch("fused_multi_step", density, max_disp,
+                                   num_jacobi_iters)
+    outs = [torch.empty_like(t) for t in (u, v, p, density)]
+    traj = torch.empty(*density.shape[:-2], num_steps, h, w,
+                       dtype=torch.float32, device=density.device)
+    scratch = torch.empty(
+        episodes * (2 * (h + 1) * w + 2 * h * (w + 1) + 5 * h * w),
+        dtype=torch.float32, device=density.device,
+    )
+    dt32, buoy, coef_uv, coef_d = _coefs(dt, viscosity)
+    stream = torch.cuda.current_stream(density.device).cuda_stream
+    rc = _lib().fused_multi_step_launch(
+        u.data_ptr(), v.data_ptr(), p.data_ptr(), density.data_ptr(),
+        *(t.data_ptr() for t in outs), traj.data_ptr(), scratch.data_ptr(),
+        episodes, h, w, num_jacobi_iters, max_disp, num_steps,
+        float(dt32), float(buoy), float(coef_uv), float(coef_d), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_multi_step kernel launch failed: cudaError {rc}")
+    MULTI_LAUNCHES += 1
+    return tuple(outs), traj
+
+
 def fused_step(
     u: Tensor, v: Tensor, p: Tensor, density: Tensor,
     dt: float, viscosity: float,
@@ -186,16 +261,8 @@ def fused_step(
     if density.device.type == "cpu":
         return fused_step_reference(u, v, p, density, dt, viscosity,
                                     num_jacobi_iters, max_disp)
-    if density.device.type != "cuda":
-        raise ValueError(f"fused_step: unsupported device {density.device}")
-    if max_disp not in MAX_DISP:
-        raise ValueError(f"fused_step: max_disp must be one of {MAX_DISP}")
-    if num_jacobi_iters < 0:
-        raise ValueError("fused_step: num_jacobi_iters must be >= 0")
-    h, w = density.shape[-2], density.shape[-1]
-    episodes = density.numel() // (h * w)
-    if episodes == 0:
-        raise ValueError("fused_step: empty batch")
+    h, w, episodes = _check_launch("fused_step", density, max_disp,
+                                   num_jacobi_iters)
     outs = [torch.empty_like(t) for t in (u, v, p, density)]
     scratch = torch.empty(
         episodes * ((h + 1) * w + h * (w + 1) + 3 * h * w),

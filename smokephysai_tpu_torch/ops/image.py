@@ -48,9 +48,12 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _on_device(kind: str, in_size: int, out_size: int, device, dtype) -> Tensor:
     """The matrix, copied to the device once (a copy from host memory at
-    every call would wait for the work already queued on the card)."""
+    every call would wait for the work already queued on the card). Made
+    outside inference mode, so that a matrix first cached by an inference
+    call can still be saved for a later backward."""
     build = _adaptive_pool_matrix if kind == "pool" else _resize_matrix
-    return torch.from_numpy(build(in_size, out_size)).to(device, dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(build(in_size, out_size)).to(device, dtype)
 
 
 def _separable(x: Tensor, kind: str, out_hw: Tuple[int, int]) -> Tensor:

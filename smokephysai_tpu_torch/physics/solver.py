@@ -9,8 +9,10 @@ staggered-to-centre velocity sampling.
 Fields may carry a leading batch of episodes. `step(use_pallas=True)` runs
 the whole step as one CUDA kernel (`ops/fused_step.py`) on every grid (the
 JAX package's fused Pallas kernel runs only on grids whose fields fit in
-VMEM); everything else is the plain per-op pipeline. Vorticity confinement and the general gather advection
-(max_disp=0) are not ported yet and raise.
+VMEM), and `multi_step(use_pallas=True)` a whole episode of steps as one
+kernel; everything else is the plain per-op pipeline. Vorticity
+confinement and the general gather advection (max_disp=0) are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -36,16 +38,17 @@ def init_state(
 
 
 def add_smoke_source(
-    density: Tensor, x: float, y: float, radius: float = 10.0,
-    intensity: float = 1.0,
+    density: Tensor, x, y, radius: float = 10.0, intensity=1.0,
 ) -> Tensor:
-    """Gaussian blob, sigma = radius/3, truncated at `radius`."""
+    """Gaussian blob, sigma = radius/3, truncated at `radius`. `x`, `y`
+    and `intensity` are numbers or float32 tensors that broadcast against
+    [H, W] (for example [N, 1, 1], one blob per episode)."""
     h, w = density.shape[-2], density.shape[-1]
     y_grid = torch.arange(h, dtype=torch.float32, device=density.device)[:, None]
     x_grid = torch.arange(w, dtype=torch.float32, device=density.device)[None, :]
-    dist = torch.sqrt((x_grid - float(x)) ** 2 + (y_grid - float(y)) ** 2)
+    dist = torch.sqrt((x_grid - x) ** 2 + (y_grid - y) ** 2)
     sigma2 = 2.0 * (radius / 3.0) ** 2
-    blob = float(intensity) * torch.exp(-(dist**2) / sigma2)
+    blob = intensity * torch.exp(-(dist**2) / sigma2)
     return density + torch.where(dist <= radius, blob, torch.zeros_like(blob))
 
 
@@ -142,3 +145,38 @@ def step(
 
     # 5. decay
     return state.replace(u=u, v=v, density=density * 0.995)
+
+
+def multi_step(
+    state: SimState,
+    num_steps: int,
+    dt: float = 0.01,
+    viscosity: float = 0.001,
+    num_jacobi_iters: int = 20,
+    vorticity_eps: float = 0.0,
+    use_pallas: bool = False,
+    max_disp: int | None = None,
+) -> Tuple[SimState, Tensor]:
+    """`num_steps` solver steps; returns the final state and the density
+    trajectory [..., num_steps, H, W] (episodes of a leading batch stay
+    first, as the JAX package's vmapped call returns them).
+
+    `use_pallas=True` runs the whole loop as one multi-step kernel launch
+    (max_disp 1 unless given); otherwise a loop of `step` on the plain
+    path (max_disp 2 unless given), the policy of `step`."""
+    if vorticity_eps != 0.0:
+        raise NotImplementedError("vorticity confinement is not ported")
+    if max_disp is not None and max_disp <= 0:
+        raise NotImplementedError("the gather advection path (max_disp=0) is not ported")
+    if use_pallas:
+        (u, v, p, d), traj = _fused.fused_multi_step(
+            state.u, state.v, state.p, state.density, num_steps, dt, viscosity,
+            num_jacobi_iters, max_disp=1 if max_disp is None else max_disp,
+        )
+        return SimState(u=u, v=v, p=p, density=d), traj
+    traj = []
+    for _ in range(num_steps):
+        state = step(state, dt=dt, viscosity=viscosity,
+                     num_jacobi_iters=num_jacobi_iters, max_disp=max_disp)
+        traj.append(state.density)
+    return state, torch.stack(traj, dim=-3)
