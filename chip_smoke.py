@@ -6,7 +6,7 @@
 From the root of a checkout, with one CUDA card:
 
 1. prints the card, the device count and nvidia-smi's name and power limit;
-2. builds the three CUDA sources with nvcc (in parallel) and prints the
+2. builds the five CUDA sources with nvcc (in parallel) and prints the
    seconds;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card (fused solver step and multi-step at 128^2, one episode and a batch
@@ -33,12 +33,27 @@ From the root of a checkout, with one CUDA card:
 7. timing phase: CUDA-event medians after warm-up; with --trace, also
    traces the serving forward, the simulator step and one train step with
    torch.profiler and prints where their device time goes;
-8. prints the kernels' JSON line, the nvidia-smi line and, last,
+8. vorticity phase: `config/config_256_vorticity.yaml`, where vorticity
+   confinement sends every solver step per op through the Jacobi and
+   diffusion kernels. Both kernels against their plain versions (Jacobi at
+   256^2 with 1 and 8 episodes, at 37x53 with 0 and 1 sweeps and at
+   2048^2; diffusion on the three staggered 256^2 fields with 1 and 8
+   episodes; max|d| 0); the slice as `inference.run` drives it (test
+   sequence, one batched forward) on `checkpoints/smokephysnet_256_vort_best.npz`
+   at full width (20 Jacobi and 60 diffusion launches, none of the other
+   kernels), its sequence against the plain per-op solver (bit-equal) and
+   its bf16 forward against the float32 model; 8 episodes of
+   `config_256_finetune.yaml`'s generation (20 + 60 launches, all 8
+   bit-equal to the plain loop); timings of both kernels, the step at 1 and
+   8 episodes, the chunk and the forward at B=19 and 8 (with --trace, the
+   step's device time by kernel);
+9. prints the kernels' JSON line, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
 fallback. Needs no network and no file outside the checkout.
 """
+import importlib
 import json
 import math
 import os
@@ -51,6 +66,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "config", "config_serving.yaml")
 TRAIN_CONFIG = os.path.join(ROOT, "config", "config_train_fast.yaml")
 CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet_128_best.npz")
+VORT_CONFIG = os.path.join(ROOT, "config", "config_256_vorticity.yaml")
+FINETUNE_CONFIG = os.path.join(ROOT, "config", "config_256_finetune.yaml")
+VORT_CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet_256_vort_best.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16 tensor
 # core FLOP/s, float32 FLOP/s outside the tensor cores
@@ -98,6 +116,7 @@ TRAIN_BWD_PROJ_GRAD_REL_NORM = 2.0 ** -8
 TRAIN_NUM = 64  # cuts of config_train_fast.yaml: episodes and steps
 VAL_NUM = 8
 TRAIN_STEPS = 10
+GEN_EPISODES = 8  # config_256_finetune.yaml's batch, generated at 256^2
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
 
@@ -220,25 +239,29 @@ def profile(fn, runs, label, top=15):
             f"({a.count // runs} per call)")
 
 
-COUNTERS = {
-    "fused_step": ("step", "LAUNCHES"),
-    "fused_multi_step": ("step", "MULTI_LAUNCHES"),
-    "flash_attention_tokens": ("attn", "LAUNCHES"),
-    "flash_attention_tokens_fwd_lse": ("attn", "LSE_LAUNCHES"),
-    "flash_attention_tokens_bwd": ("attn", "BWD_LAUNCHES"),
+COUNTERS = {  # kernel: (module under smokephysai_tpu_torch.ops, its counter)
+    "fused_step": ("fused_step", "LAUNCHES"),
+    "fused_multi_step": ("fused_step", "MULTI_LAUNCHES"),
+    "flash_attention_tokens": ("attention", "LAUNCHES"),
+    "flash_attention_tokens_fwd_lse": ("attention", "LSE_LAUNCHES"),
+    "flash_attention_tokens_bwd": ("attention", "BWD_LAUNCHES"),
+    "jacobi_pressure": ("jacobi", "LAUNCHES"),
+    "diffuse": ("stencil", "LAUNCHES"),
 }
 
 
-def reset_counts(step_ops, attn_ops):
+def _ops(module):
+    return importlib.import_module(f"smokephysai_tpu_torch.ops.{module}")
+
+
+def reset_counts():
     """Sets every kernel's launch count to 0."""
-    mods = {"step": step_ops, "attn": attn_ops}
     for mod, attr in COUNTERS.values():
-        setattr(mods[mod], attr, 0)
+        setattr(_ops(mod), attr, 0)
 
 
-def read_counts(step_ops, attn_ops):
-    mods = {"step": step_ops, "attn": attn_ops}
-    return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
+def read_counts():
+    return {name: getattr(_ops(mod), attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def expect_counts(phase, counts, **want):
@@ -287,7 +310,7 @@ class PlainFlash:
         self.module.flash_attention_tokens_trainable = self.saved
 
 
-def dataset_phase(dev, step_ops, attn_ops):
+def dataset_phase(dev):
     """Generates config_train_fast.yaml's datasets, cut to 64 + 8 episodes,
     on the card; holds two episodes against the per-op solver."""
     import numpy as np
@@ -301,7 +324,7 @@ def dataset_phase(dev, step_ops, attn_ops):
         f"data.num_train={TRAIN_NUM}", f"data.num_val={VAL_NUM}", "data.cache_dir=null"])
     data, tpu = config["data"], config["tpu"]
     grid, T = tuple(data["grid_size"]), data["sequence_length"]
-    reset_counts(step_ops, attn_ops)
+    reset_counts()
     t = time.time()
     train_ds, val_ds = create_data_loaders(
         batch_size=config["training"]["batch_size"], num_train=TRAIN_NUM,
@@ -309,7 +332,7 @@ def dataset_phase(dev, step_ops, attn_ops):
         seed=tpu["seed"], use_pallas=tpu["use_pallas"],
         vorticity_eps=tpu["vorticity_eps"], device=dev)
     torch.cuda.synchronize()
-    counts = read_counts(step_ops, attn_ops)
+    counts = read_counts()
     chunks = -(-TRAIN_NUM // CHUNK_SIZE) + -(-VAL_NUM // CHUNK_SIZE)
     say(f"dataset: {TRAIN_NUM} + {VAL_NUM} episodes at {grid[0]}x{grid[1]}, T={T}, "
         f"in {time.time() - t:.2f} s (host clock, first call, chaos labels and the "
@@ -334,7 +357,7 @@ def dataset_phase(dev, step_ops, attn_ops):
     return config, train_ds, val_ds, {"counts": counts, "err": err}
 
 
-def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
+def training_phase(config, train_ds, val_ds, dev):
     """10 train steps of the full-width fast recipe with launch counts, one
     step held against the plain attention, one eval pass, a checkpoint
     served again."""
@@ -344,6 +367,7 @@ def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
     import torch
 
     from smokephysai_tpu_torch.models import chaos_attention as ca_mod
+    from smokephysai_tpu_torch.ops import attention as attn_ops
     from smokephysai_tpu_torch.train import loop
     from smokephysai_tpu_torch.train.checkpoint import save_checkpoint
     from smokephysai_tpu_torch.train.serving import load_model, make_predictor
@@ -377,13 +401,13 @@ def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
     total = dict.fromkeys(COUNTERS, 0)
     for i in range(TRAIN_STEPS):
         batch = next(it)
-        reset_counts(step_ops, attn_ops)
+        reset_counts()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         metrics = trainer.train_step(batch)
         b.record()
         b.synchronize()
-        counts = read_counts(step_ops, attn_ops)
+        counts = read_counts()
         expect_counts(f"train step {i}", counts, flash_attention_tokens_fwd_lse=layers,
                       flash_attention_tokens_bwd=layers)
         for k in total:
@@ -397,10 +421,10 @@ def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
     if not all(math.isfinite(x) for x in losses + norms):
         fail("non-finite training loss or gradient norm")
 
-    reset_counts(step_ops, attn_ops)
+    reset_counts()
     val_loss = loop.evaluate(trainer, val_ds, bs, data_gen)
     torch.cuda.synchronize()
-    eval_counts = read_counts(step_ops, attn_ops)
+    eval_counts = read_counts()
     n_val_batches = -(-len(val_ds) // bs)
     say(f"train: eval pass over {len(val_ds)} episodes: loss {val_loss:.4f}; "
         f"launches {eval_counts}")
@@ -420,14 +444,14 @@ def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
         twin.load_state_dict(state)
         tw = loop.Trainer(twin, config, steps_per_epoch, torch.Generator(dev).manual_seed(1))
         tw.step = trainer.step
-        reset_counts(step_ops, attn_ops)
+        reset_counts()
         if mode == "kernels":
             m = tw.train_step(batch, chaos_fields=fields)
         else:
             with PlainFlash(attn_ops, ca_mod, forward=mode == "plain"):
                 m = tw.train_step(batch, chaos_fields=fields)
         torch.cuda.synchronize()
-        counts = read_counts(step_ops, attn_ops)
+        counts = read_counts()
         # the clipped gradients the optimizer applied, back to their scale
         clip = min(1.0, 1.0 / float(m["grad_norm"]))
         proj = {n: p.grad / clip for n, p in twin.named_parameters()
@@ -473,10 +497,10 @@ def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
         served = load_model(serve_cfg, os.path.join(tmp, "best_model.npz"), dev)
     trained = model.state_dict()
     same = all(torch.equal(v, trained[k]) for k, v in served.state_dict().items())
-    reset_counts(step_ops, attn_ops)
+    reset_counts()
     out = make_predictor(served, chaos_seed=seed)(frames)
     torch.cuda.synchronize()
-    serve_counts = read_counts(step_ops, attn_ops)
+    serve_counts = read_counts()
     finite = bool(torch.isfinite(out["reconstructed"]).all()
                   and torch.isfinite(out["physics_features"]).all())
     say(f"train: checkpoint served through load_model: weights equal {same}, "
@@ -487,6 +511,200 @@ def training_phase(config, train_ds, val_ds, dev, step_ops, attn_ops):
         fail("the trained checkpoint does not serve back")
     del served, out
     return trainer, it, {"step_ms": step_ms, "counts": total, "losses": losses}
+
+
+def vorticity_phase(dev, name, trace):
+    """config_256_vorticity.yaml's serving path and config_256_finetune.yaml's
+    episode generation, where vorticity confinement sends each solver step
+    per op through the Jacobi and diffusion kernels: both kernels against
+    their plain versions, the slice on smokephysnet_256_vort_best.npz with
+    launch counts, eight episodes generated, and their timings."""
+    import numpy as np
+    import torch
+
+    from smokephysai_tpu_torch import inference
+    from smokephysai_tpu_torch.data.synthetic import sample_source_params
+    from smokephysai_tpu_torch.ops import jacobi as jacobi_ops
+    from smokephysai_tpu_torch.ops import stencil as stencil_ops
+    from smokephysai_tpu_torch.physics import solver
+    from smokephysai_tpu_torch.physics.simulator import simulate_episode
+    from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    config = load_config(VORT_CONFIG)
+    sim = config["simulation"]
+    dt, visc, iters = sim["dt"], sim["viscosity"], sim["num_jacobi_iters"]
+    grid = tuple(sim["grid_size"])
+    eps = config["tpu"]["vorticity_eps"]
+    h, w = grid
+    gen = torch.Generator().manual_seed(2)
+
+    # ------------------------------------------------ kernels vs plain versions
+    def pressure_inputs(episodes, hh, ww):
+        p = (0.1 * torch.randn(episodes, hh, ww, generator=gen)).to(dev)
+        return p, torch.randn(episodes, hh, ww, generator=gen).to(dev)
+
+    jacobi_err = 0.0
+    for episodes, hh, ww, k in ((1, h, w, iters), (8, h, w, iters), (2, 37, 53, 0),
+                                (2, 37, 53, 1), (1, 2048, 2048, iters)):
+        p, div = pressure_inputs(episodes, hh, ww)
+        before = (p.clone(), div.clone())
+        out = jacobi_ops.jacobi_pressure(p, div, k)
+        ref = jacobi_ops.jacobi_pressure_reference(p, div, k)
+        torch.cuda.synchronize()
+        err = maxerr(out, ref)
+        kept = torch.equal(p, before[0]) and torch.equal(div, before[1])
+        say(f"kernel jacobi_pressure [{episodes},{hh},{ww}] x{k} sweeps: max|d| "
+            f"{err:.3e} (bound 0), inputs unchanged {kept}")
+        if not (err == 0.0 and kept):
+            fail("jacobi_pressure disagrees with its plain version")
+        jacobi_err = max(jacobi_err, err)
+        del p, div, before, out, ref
+    coef_uv = np.float32(dt) * np.float32(visc)
+    coef_d = np.float32(dt) * (np.float32(visc) * np.float32(0.1))
+    shapes = {"u": ((h + 1, w), coef_uv), "v": ((h, w + 1), coef_uv),
+              "density": ((h, w), coef_d)}
+    diffuse_err = 0.0
+    for episodes in (1, GEN_EPISODES):  # serving's batch and generation's
+        for field, (shape, coef) in shapes.items():
+            f = torch.rand(episodes, *shape, generator=gen).to(dev)
+            before = f.clone()
+            err = maxerr(stencil_ops.diffuse(f, coef), stencil_ops.diffuse_reference(f, coef))
+            kept = torch.equal(f, before)
+            say(f"kernel diffuse {field} [{episodes},{shape[0]},{shape[1]}] coef {coef:.3e}: "
+                f"max|d| {err:.3e} (bound 0), input unchanged {kept}")
+            if not (err == 0.0 and kept):
+                fail("diffuse disagrees with its plain version")
+            diffuse_err = max(diffuse_err, err)
+
+    # ------------------------------------------------ the slice
+    if not os.path.exists(VORT_CHECKPOINT):
+        fail(f"checkpoint {VORT_CHECKPOINT} is missing")
+    t = time.time()
+    model = load_model(config, VORT_CHECKPOINT, dev)
+    predict = make_predictor(model, chaos_seed=config["tpu"]["seed"])
+    simulator = inference.make_simulator(config, dev)
+    torch.cuda.synchronize()
+    say(f"vorticity slice: model and simulator ready in {time.time() - t:.2f} s "
+        f"(compute {model.dtype}, flash {model.layer_0.chaos_attention.use_flash})")
+    reset_counts()
+    t = time.time()
+    sequence = inference.generate_test_sequence(simulator, 20)
+    inputs = torch.stack(sequence[:-1])[..., None]
+    outputs = predict(inputs)
+    torch.cuda.synchronize()
+    slice_s = time.time() - t
+    launches = read_counts()
+    say(f"vorticity slice: {grid[0]}x{grid[1]}, vorticity_eps {eps}, 20 frames and one "
+        f"batched forward of 19 in {slice_s * 1e3:.1f} ms (host clock, first call); "
+        f"launches {launches}")
+    expect_counts("vorticity slice", launches, jacobi_pressure=20, diffuse=60)
+    recon, phys = outputs["reconstructed"], outputs["physics_features"]
+    if tuple(recon.shape) != (19, *grid, 1) or tuple(phys.shape) != (19, 3):
+        fail(f"unexpected output shapes {tuple(recon.shape)}, {tuple(phys.shape)}")
+    if not (torch.isfinite(recon).all() and torch.isfinite(phys).all()
+            and all(torch.isfinite(f).all() for f in sequence)):
+        fail("non-finite frames or model outputs")
+    plain_sim = inference.make_simulator(config, dev)
+    plain_sim.use_pallas = False
+    plain_seq = inference.generate_test_sequence(plain_sim, 20)
+    sim_err = maxerr(torch.stack(sequence), torch.stack(plain_seq))
+    say(f"vorticity slice: sequence vs the plain per-op solver on the card: max|d| "
+        f"{sim_err:.3e} (bound 0: every stage is the plain version's)")
+    if sim_err != 0.0:
+        fail("the vorticity slice's sequence disagrees with the plain per-op solver")
+    f32_config = json.loads(json.dumps(config))
+    f32_config["tpu"].update(compute_dtype="float32", use_flash=False, fast_math=False)
+    model32 = load_model(f32_config, VORT_CHECKPOINT, dev)
+    out32 = make_predictor(model32, chaos_seed=config["tpu"]["seed"])(inputs)
+    recon_err = maxerr(recon, out32["reconstructed"])
+    truth = torch.stack(sequence[1:])[..., None]
+    mse = float(((recon.float() - truth) ** 2).mean())
+    mse32 = float(((out32["reconstructed"] - truth) ** 2).mean())
+    say(f"vorticity slice: bf16 vs float32 einsum: reconstructed max|d| {recon_err:.3e} "
+        f"(bound {RECON_BF16_VS_F32:g}), physics max|d| "
+        f"{maxerr(phys, out32['physics_features']):.3e}; next-frame MSE bf16 {mse:.6e}, "
+        f"float32 {mse32:.6e}")
+    if not (recon_err <= RECON_BF16_VS_F32 and math.isfinite(mse) and math.isfinite(mse32)):
+        fail("the vorticity slice's bf16 forward disagrees with the float32 model")
+    del model32, out32
+
+    # ------------------------------------------------ generation
+    src = {k: v.to(dev) for k, v in
+           sample_source_params(torch.Generator().manual_seed(3), GEN_EPISODES, grid).items()}
+    T = load_config(FINETUNE_CONFIG)["data"]["sequence_length"]
+
+    def generate(use_pallas):
+        return simulate_episode(src["xy"], src["intensity"], src["active"],
+                                grid, T, dt, visc, iters, eps, use_pallas)
+
+    reset_counts()
+    t = time.time()
+    seqs, labels = generate(True)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    gen_counts = read_counts()
+    say(f"vorticity generation: {GEN_EPISODES} episodes at {grid[0]}x{grid[1]}, T={T}, "
+        f"in {gen_s * 1e3:.1f} ms (host clock, first call); launches {gen_counts}")
+    expect_counts("vorticity generation", gen_counts, jacobi_pressure=T, diffuse=3 * T)
+    if not (torch.isfinite(seqs).all() and torch.isfinite(labels).all()):
+        fail("non-finite generated episodes or labels")
+    pseqs, plabels = generate(False)
+    gen_err = max(maxerr(seqs, pseqs), maxerr(labels, plabels))
+    say(f"vorticity generation: all {GEN_EPISODES} episodes vs the plain per-op loop: "
+        f"max|d| {gen_err:.3e} (bound 0); labels mean {labels.mean(dim=0).tolist()}")
+    if gen_err != 0.0:
+        fail("generated vorticity episodes disagree with the plain per-op loop")
+
+    # ------------------------------------------------ timing
+    timings = {}
+    for episodes, hh, ww in ((1, h, w), (GEN_EPISODES, h, w), (1, 2048, 2048)):
+        p, div = pressure_inputs(episodes, hh, ww)
+        ms = timed(lambda: jacobi_ops.jacobi_pressure(p, div, iters))
+        plain_ms = timed(lambda: jacobi_ops.jacobi_pressure_reference(p, div, iters), runs=5)
+        cells = episodes * hh * ww
+        bound = lower_bound(3 * 4 * cells, 5 * cells * iters, F32_FLOPS)
+        timings[("jacobi_pressure", episodes, hh)] = (ms, plain_ms, *bound)
+        say(f"time jacobi_pressure [{episodes},{hh},{ww}] x{iters} sweeps on {name}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+    for field, (shape, coef) in shapes.items():
+        f = torch.rand(1, *shape, generator=gen).to(dev)
+        ms = timed(lambda: stencil_ops.diffuse(f, coef))
+        plain_ms = timed(lambda: stencil_ops.diffuse_reference(f, coef))
+        n = shape[0] * shape[1]
+        bound = lower_bound(2 * 4 * n, 7 * n, F32_FLOPS)
+        timings[("diffuse", field)] = (ms, plain_ms, *bound)
+        say(f"time diffuse {field} {shape} on {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+
+    def state_of(episodes):
+        s = solver.init_state(grid, device=dev, batch=(episodes,))
+        return s.replace(density=seqs[:episodes, T // 2].contiguous())
+
+    step_ms = {}
+    for episodes in (1, GEN_EPISODES):
+        s = state_of(episodes)
+        ms = timed(lambda: solver.step(s, dt, visc, iters, eps, use_pallas=True))
+        plain_ms = timed(lambda: solver.step(s, dt, visc, iters, eps, use_pallas=False),
+                         runs=5)
+        step_ms[episodes] = ms
+        say(f"time vorticity step {grid[0]}x{grid[1]} x{episodes} on {name}: kernels "
+            f"{ms:.4f} ms, plain per-op {plain_ms:.4f} ms")
+    chunk_ms = timed(lambda: generate(True), runs=5, warmup=1)
+    say(f"time vorticity generation chunk ({GEN_EPISODES} episodes x {T} steps at "
+        f"{grid[0]}x{grid[1]}: sources, steps, perturbation, chaos labels) on {name}: "
+        f"{chunk_ms:.4f} ms")
+    serve_batch = config["training"]["batch_size"]
+    fwd_ms = {b: timed(lambda: predict(inputs[:b])) for b in (19, serve_batch)}
+    say(f"time vorticity serving forward (bf16, einsum) on {name}: B=19 {fwd_ms[19]:.3f} "
+        f"ms, B={serve_batch} {fwd_ms[serve_batch]:.3f} ms")
+    if trace:
+        s = state_of(1)
+        profile(lambda: solver.step(s, dt, visc, iters, eps, use_pallas=True), 20,
+                f"vorticity step {grid[0]}x{grid[1]}", top=25)
+    del model, predict
+    return {"launches": launches, "jacobi_err": jacobi_err, "diffuse_err": diffuse_err,
+            "timings": timings}
 
 
 def main():
@@ -507,6 +725,8 @@ def main():
     from smokephysai_tpu_torch.ops import _build
     from smokephysai_tpu_torch.ops import attention as attn_ops
     from smokephysai_tpu_torch.ops import fused_step as step_ops
+    from smokephysai_tpu_torch.ops import jacobi as jacobi_ops
+    from smokephysai_tpu_torch.ops import stencil as stencil_ops
     from smokephysai_tpu_torch.physics import solver
     from smokephysai_tpu_torch.train.serving import load_model, make_predictor
     from smokephysai_tpu_torch.utils.config import load_config
@@ -534,9 +754,11 @@ def main():
     t = time.time()
     _build.build_all([(step_ops.SOURCE, step_ops.FLAGS),
                       (attn_ops.SOURCE, attn_ops.FLAGS),
-                      (attn_ops.BWD_SOURCE, attn_ops.FLAGS)])
+                      (attn_ops.BWD_SOURCE, attn_ops.FLAGS),
+                      (jacobi_ops.SOURCE, jacobi_ops.FLAGS),
+                      (stencil_ops.SOURCE, stencil_ops.FLAGS)])
     build_s = time.time() - t
-    say(f"build: three sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
+    say(f"build: five sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -681,14 +903,14 @@ def main():
         f"(compute {model.dtype}, flash {model.layer_0.chaos_attention.use_flash}, "
         f"fast_math {model.layer_0.fast_math})")
 
-    reset_counts(step_ops, attn_ops)
+    reset_counts()
     t = time.time()
     sequence = inference.generate_test_sequence(simulator, 20)
     inputs = torch.stack(sequence[:-1])[..., None]
     outputs = predict(inputs)
     torch.cuda.synchronize()
     slice_s = time.time() - t
-    launches = read_counts(step_ops, attn_ops)
+    launches = read_counts()
     say(f"slice: 20 frames + one batched forward of {inputs.shape[0]} in "
         f"{slice_s * 1e3:.1f} ms (host clock, first call); launches {launches}")
     expected_flash = config["model"]["num_layers"]
@@ -734,11 +956,11 @@ def main():
     del model32, out32
 
     # ---------------------------------------------------------------- dataset
-    train_config, train_ds, val_ds, data_info = dataset_phase(dev, step_ops, attn_ops)
+    train_config, train_ds, val_ds, data_info = dataset_phase(dev)
 
     # ---------------------------------------------------------------- training
     trainer, train_batches, train_info = training_phase(
-        train_config, train_ds, val_ds, dev, step_ops, attn_ops)
+        train_config, train_ds, val_ds, dev)
 
     # ---------------------------------------------------------------- timing
     def step_bound(episodes):
@@ -866,6 +1088,9 @@ def main():
         profile(lambda: trainer.train_step(next(train_batches)), 3,
                 f"train step B={tb}")
 
+    # ---------------------------------------------------------------- vorticity
+    vort = vorticity_phase(dev, name, trace)
+
     # ---------------------------------------------------------------- report
     fs = timings[("fused_step", 1)]
     fl = timings[("flash_attention_tokens", serve_batch)]
@@ -920,6 +1145,24 @@ def main():
             "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
             "library_ms": t_[4],
             "shape": f"[{tb},1024,{width}] bf16, {heads} heads of 64",
+        })
+    vgrid = "256x256"
+    for kname, source, line, key, err, shape in (
+            ("jacobi_pressure", "jacobi.cu", "jacobi.py:122", ("jacobi_pressure", 1, 256),
+             vort["jacobi_err"], f"p, div [1,{vgrid}] f32, 20 sweeps"),
+            ("diffuse", "stencil.cu", "stencil.py:35", ("diffuse", "density"),
+             vort["diffuse_err"], f"density [1,{vgrid}] f32")):
+        t_ = vort["timings"][key]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"smokephysai_tpu_torch/csrc/{source}",
+            "replaces": f"smokephysai_tpu/ops/pallas/{line}",
+            "launches": vort["launches"][kname],
+            "max_abs_err": err,
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": None,
+            "shape": shape,
         })
     say(f"wall: {time.time() - T0:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -2,13 +2,15 @@
 
 Counterpart of the JAX package's `data/synthetic.py`. Episodes are
 generated in chunks of 64 by `physics.simulator.simulate_episode`, one
-multi-step kernel launch per chunk with `use_pallas`. Source
+multi-step kernel launch per chunk with `use_pallas` (with vorticity
+confinement, per-op steps through the stencil and Jacobi kernels). Source
 randomisation has the JAX package's (and the reference's) distributions:
 1-3 sources (inactive slots masked), positions uniform over the integers
 of [20, size-20), intensity U(0.5, 2.0); the draws come from an explicit
 `torch.Generator`, so they are not the JAX package's numbers. The npz cache
-has the JAX package's keys and file names, so one cache serves both
-packages.
+has the JAX package's keys; the port reads a file the JAX package wrote
+under its name, but writes its own episodes under that name with a
+`_torch` tag, so that a JAX run never trains on torch-drawn episodes.
 
 A sample is a frame t in [5, T-5) as input, frame t+1 as target, the
 episode's chaos label and either the whole sequence (for the continuity
@@ -32,6 +34,7 @@ SOURCE_MARGIN = 20
 INTENSITY_RANGE = (0.5, 2.0)
 FRAME_RANGE = (5, -5)
 CHUNK_SIZE = 64
+CACHE_TAG = "_torch"  # on the cache files the port writes
 
 
 def _check_sequence_length(sequence_length: int) -> None:
@@ -261,8 +264,9 @@ def create_data_loaders(
     device="cuda",
 ) -> Tuple[SyntheticSmokeDataset, SyntheticSmokeDataset]:
     """Train and validation datasets (seeds `seed` and `seed + 1`), cached
-    under `cache_dir` with the JAX package's file names, which encode the
-    grid, sequence length, size, seed and vorticity."""
+    under `cache_dir`. The JAX package's file name (grid, sequence length,
+    size, seed and vorticity) is read when it exists; otherwise the port's
+    own, the same name tagged `_torch`, is read or written."""
 
     def cache_path(split: str, n: int, s: int) -> Optional[str]:
         if not cache_dir:
@@ -271,7 +275,10 @@ def create_data_loaders(
         tag = f"{split}_{h}x{w}_T{sequence_length}_n{n}_s{s}"
         if vorticity_eps:
             tag += f"_vort{vorticity_eps:g}"
-        return os.path.join(cache_dir, f"{tag}.npz")
+        jax_written = os.path.join(cache_dir, f"{tag}.npz")
+        if os.path.exists(jax_written):
+            return jax_written
+        return os.path.join(cache_dir, f"{tag}{CACHE_TAG}.npz")
 
     common = dict(grid_size=grid_size, sequence_length=sequence_length,
                   use_pallas=use_pallas, vorticity_eps=vorticity_eps, device=device)

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from . import _build
+from .jacobi import jacobi_pressure_reference
+from .stencil import diffuse_reference, shift
 
 Tensor = torch.Tensor
 
@@ -39,44 +41,6 @@ def _coefs(dt: float, viscosity: float):
 
 
 # ---------------------------------------------------------------- plain version
-
-
-def _shift(f: Tensor, di: int, dj: int, fill: str) -> Tensor:
-    """f[i + di, j + dj] on the last two dims; out-of-range taps are zero
-    (fill='zero') or the nearest edge value (fill='edge')."""
-    h, w = f.shape[-2], f.shape[-1]
-    if fill == "edge":
-        rows = torch.arange(h, device=f.device).add(di).clamp(0, h - 1)
-        cols = torch.arange(w, device=f.device).add(dj).clamp(0, w - 1)
-        return f.index_select(-2, rows).index_select(-1, cols)
-    out = torch.zeros_like(f)
-    r0, r1 = max(0, -di), min(h, h - di)
-    c0, c1 = max(0, -dj), min(w, w - dj)
-    if r1 > r0 and c1 > c0:
-        out[..., r0:r1, c0:c1] = f[..., r0 + di:r1 + di, c0 + dj:c1 + dj]
-    return out
-
-
-def _diffuse(f: Tensor, coef) -> Tensor:
-    lap = (
-        _shift(f, -1, 0, "edge") + _shift(f, 1, 0, "edge")
-        + _shift(f, 0, -1, "edge") + _shift(f, 0, 1, "edge") - 4.0 * f
-    )
-    return f + float(coef) * lap
-
-
-def _jacobi(p: Tensor, div: Tensor, num_iters: int) -> Tensor:
-    h, w = div.shape[-2], div.shape[-1]
-    row = torch.arange(h, device=p.device)[:, None]
-    col = torch.arange(w, device=p.device)[None, :]
-    interior = (row > 0) & (row < h - 1) & (col > 0) & (col < w - 1)
-    for _ in range(num_iters):
-        val = 0.25 * (
-            _shift(p, -1, 0, "zero") + _shift(p, 1, 0, "zero")
-            + _shift(p, 0, -1, "zero") + _shift(p, 0, 1, "zero") - div
-        )
-        p = torch.where(interior, val, torch.zeros_like(val))
-    return p
 
 
 def _centered_velocities(u: Tensor, v: Tensor, fh: int, fw: int):
@@ -107,7 +71,7 @@ def tent_advect(field: Tensor, u: Tensor, v: Tensor, dt, max_disp: int) -> Tenso
         wy = torch.clamp_min(1.0 - torch.abs(prev_y - (y_c + di)), 0.0)
         for dj in range(-max_disp, max_disp + 1):
             wx = torch.clamp_min(1.0 - torch.abs(prev_x - (x_c + dj)), 0.0)
-            out = out + wy * wx * _shift(field, di, dj, "zero")
+            out = out + wy * wx * shift(field, di, dj, "zero")
     keep = (prev_x < w - 1) & (prev_y < h - 1)
     return torch.where(keep, out, torch.zeros_like(out))
 
@@ -124,15 +88,15 @@ def fused_step_reference(
     # 1. buoyancy on v[:, :-1] (the reference solver's quirk)
     v = torch.cat([v[..., :, :-1] + float(buoy) * d, v[..., :, -1:]], dim=-1)
     # 2. diffusion
-    u = _diffuse(u, coef_uv)
-    v = _diffuse(v, coef_uv)
-    d = _diffuse(d, coef_d)
+    u = diffuse_reference(u, coef_uv)
+    v = diffuse_reference(v, coef_uv)
+    d = diffuse_reference(d, coef_d)
     # 3. projection: divergence, warm-started Jacobi, interior correction
     # a tensor divisor: true division on the card too (a Python scalar
     # divisor becomes a multiply by its reciprocal there)
     div = (u[..., 1:, :] - u[..., :-1, :] + v[..., :, 1:] - v[..., :, :-1]) / torch.tensor(
         float(dt32), dtype=u.dtype, device=u.device)
-    p = _jacobi(p, div, num_jacobi_iters)
+    p = jacobi_pressure_reference(p, div, num_jacobi_iters)
     dtf = float(dt32)
     u = torch.cat([u[..., :1, :],
                    u[..., 1:-1, :] - dtf * (p[..., 1:, :] - p[..., :-1, :]),

@@ -57,7 +57,7 @@ def shannon_entropy(frame: Tensor, bins: int = HISTOGRAM_BINS) -> Tensor:
     """Base-2 entropy of a `bins`-bin histogram over [0, 1], [..., H, W] ->
     [...]: values outside [0, 1] are left out, and 1.0 falls in the last
     bin (the closed right edge)."""
-    x = frame.reshape(*frame.shape[:-2], -1)
+    x = frame.flatten(-2)
     valid = (x >= 0.0) & (x <= 1.0)
     idx = torch.clamp(torch.floor(x * bins).to(torch.int64), 0, bins - 1)
     idx = torch.where(valid, idx, torch.zeros_like(idx))

@@ -38,8 +38,9 @@ class SmokeSimulator:
         device="cuda",
     ):
         """`use_pallas=True` (the config's `tpu.use_pallas`) steps through
-        the fused step kernel, as the JAX package steps through its Pallas
-        kernel."""
+        the fused step kernel, or with `vorticity_eps` > 0 through the
+        per-op step's stencil and Jacobi kernels, as the JAX package steps
+        through its Pallas kernels."""
         self.grid_size = tuple(grid_size)
         self.dt = dt
         self.viscosity = viscosity
@@ -130,9 +131,10 @@ def simulate_episode(
     use_pallas: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A batch of N whole episodes on the source parameters' device:
-    sources -> `solver.multi_step` (one multi-step kernel launch for the
-    batch with `use_pallas`) -> fractal perturbation of the recorded frames
-    -> episode-averaged chaos label.
+    sources -> `solver.multi_step` (with `use_pallas`, one multi-step kernel
+    launch for the batch, or with vorticity confinement `num_steps` per-op
+    steps through the stencil and Jacobi kernels) -> fractal perturbation
+    of the recorded frames -> episode-averaged chaos label.
 
     Args: source_xy [N, S, 2] (x, y), source_intensity [N, S], source_active
     [N, S] in {0, 1} (inactive slots are masked). Returns (sequences

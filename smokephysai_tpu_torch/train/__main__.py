@@ -1,14 +1,16 @@
 """Training CLI of the PyTorch/CUDA port:
 
     python -m smokephysai_tpu_torch.train --config config/config_train_fast.yaml \\
-        [--set SEC.KEY=VAL ...] [--init_from weights.npz] [--resume EXP_DIR] \\
-        [--device cpu]
+        [--set SEC.KEY=VAL ...] [--init_from weights.npz] \\
+        [--resume EXP_DIR|CKPT.pt|auto] [--device cpu]
 
 Same flow as the root `train.py`: read the YAML config (with overrides),
 generate or load the cached train and validation datasets, train with
 `train/loop.fit` into experiments/smokephys_<timestamp>/ (best_model.pt and
 .npz on each better validation loss, last_model.pt and .npz at the end).
 The .npz files are flat exports that `train/serving.load_model` serves.
+`--resume auto` resumes the newest experiment that holds a best model (a
+fresh run when there is none).
 Runs on the card unless --device cpu is given.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..data.synthetic import create_data_loaders
 from ..utils.config import apply_overrides, load_config
+from .checkpoint import latest_checkpoint
 from .loop import fit
 
 
@@ -33,13 +36,17 @@ def main(argv=None) -> str:
                         help="start from the weights of an .npz export "
                              "(fresh optimizer)")
     parser.add_argument("--resume", type=str, default=None,
-                        help="experiment directory or .pt checkpoint to resume")
+                        help="experiment directory or .pt checkpoint to resume, "
+                             "or 'auto' for the newest experiment")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
     config = apply_overrides(load_config(args.config), args.set)
     if args.set:
         print(f"Config overrides: {args.set}")
+    if args.resume == "auto":
+        args.resume = latest_checkpoint()
+        print(f"Auto-resume from: {args.resume}")
     if len(config["data"]["grid_size"]) == 3:
         raise NotImplementedError("the volumetric training path is not ported")
     device = torch.device(args.device)

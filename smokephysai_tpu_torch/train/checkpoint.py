@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -89,3 +89,13 @@ def restore_checkpoint(path: str, trainer, data_generator: torch.Generator) -> D
     trainer.generator.set_state(payload["generator"].cpu())
     data_generator.set_state(payload["data_generator"].cpu())
     return payload["meta"]
+
+
+def latest_checkpoint(experiments_root: str = "experiments") -> Optional[str]:
+    """The last experiment directory (by name: the names are timestamps)
+    under `experiments_root` that holds a best-model checkpoint, or None."""
+    if not os.path.isdir(experiments_root):
+        return None
+    found = sorted(d for d in os.listdir(experiments_root)
+                   if os.path.isfile(os.path.join(experiments_root, d, f"{CKPT_NAME}.pt")))
+    return os.path.join(experiments_root, found[-1]) if found else None

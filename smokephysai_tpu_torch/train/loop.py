@@ -88,10 +88,22 @@ def init_parameters(model: SmokePhysNet, generator: torch.Generator) -> SmokePhy
     return model
 
 
+def _refuse_mesh(config: Dict) -> None:
+    tpu = config.get("tpu", {})
+    data_axis, model_axis = int(tpu.get("data_axis", 1)), int(tpu.get("model_axis", 1))
+    if data_axis * model_axis > 1:
+        raise NotImplementedError(
+            f"tpu.data_axis={data_axis} x tpu.model_axis={model_axis}: the "
+            "data- and tensor-parallel mesh is not ported (one device only)")
+
+
 def build_train_model(config: Dict, device="cuda") -> SmokePhysNet:
     """SmokePhysNet from config in training mode: compute type
     `tpu.train_compute_dtype`, `tpu.use_flash` and `tpu.fast_math` as the
-    JAX package's `create_train_state` reads them."""
+    JAX package's `create_train_state` reads them. A data- or
+    tensor-parallel mesh (`tpu.data_axis` x `tpu.model_axis` > 1) is not
+    ported and is refused."""
+    _refuse_mesh(config)
     cfg = copy.deepcopy(config)
     tpu = cfg.setdefault("tpu", {})
     tpu["compute_dtype"] = tpu.get("train_compute_dtype", "float32")
@@ -244,7 +256,9 @@ def fit(
     `torch.save` of the whole state plus the npz export of the served
     weights). `init_from` starts from an npz export's weights with a fresh
     optimizer; `resume_from` (an experiment directory or a checkpoint
-    file) restores everything and continues with the next epoch."""
+    file) restores everything and continues with the next epoch. A
+    data- or tensor-parallel mesh is refused."""
+    _refuse_mesh(config)
     tc = config["training"]
     batch_size = tc["batch_size"]
     seed = int(config.get("tpu", {}).get("seed", 0))

@@ -17,6 +17,8 @@ import torch
 
 from smokephysai_tpu_torch.ops import attention as attn_ops
 from smokephysai_tpu_torch.ops import fused_step as step_ops
+from smokephysai_tpu_torch.ops import jacobi as jacobi_ops
+from smokephysai_tpu_torch.ops import stencil as stencil_ops
 from smokephysai_tpu_torch.physics import solver
 
 pytestmark = pytest.mark.cuda
@@ -127,6 +129,73 @@ def test_fused_multi_step_kernel_matches_plain(cuda, episodes):
         assert torch.equal(a, b)
     for a, b in zip(fields, before):
         assert torch.equal(a, b)
+
+
+def _pressure_inputs(dev, episodes, h, w, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    p = 0.1 * torch.randn(episodes, h, w, generator=g)
+    div = torch.randn(episodes, h, w, generator=g)
+    return p.to(dev), div.to(dev)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 20])
+@pytest.mark.parametrize("episodes", [1, 3])
+def test_jacobi_kernel_matches_plain(cuda, episodes, iters):
+    """The tiled Jacobi kernel at 256^2 against its plain version: bit-equal
+    (built without FMA contraction, same order of additions), one launch,
+    inputs not modified."""
+    p, div = _pressure_inputs(cuda, episodes, 256, 256)
+    before = (p.clone(), div.clone())
+    launches = jacobi_ops.LAUNCHES
+    out = jacobi_ops.jacobi_pressure(p, div, iters)
+    assert jacobi_ops.LAUNCHES == launches + 1
+    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, iters))
+    assert torch.equal(p, before[0]) and torch.equal(div, before[1])
+
+
+@pytest.mark.parametrize("h,w,iters", [(37, 53, 20), (2, 2, 3), (3, 70, 1), (101, 67, 45),
+                                       (2048, 2048, 20)],
+                         ids=["odd", "2x2", "3x70", "two-passes", "2048"])
+def test_jacobi_kernel_odd_and_large_grids(cuda, h, w, iters):
+    """Bit-equal on odd and tiny grids, past MAX_HALO sweeps (two passes
+    through scratch, counted as two launches) and on a 2048^2 grid, where
+    the TPU kernel tiles."""
+    p, div = _pressure_inputs(cuda, 2 if h < 2048 else 1, h, w)
+    launches = jacobi_ops.LAUNCHES
+    out = jacobi_ops.jacobi_pressure(p, div, iters)
+    assert jacobi_ops.LAUNCHES == launches + -(-iters // jacobi_ops.MAX_HALO)
+    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, iters))
+
+
+@pytest.mark.parametrize("field", ["u", "v", "density"])
+def test_diffuse_kernel_matches_plain(cuda, field):
+    """The diffusion kernel on each staggered field of a 256^2 grid, two
+    episodes: bit-equal to its plain version, one launch, input kept."""
+    shape = {"u": (257, 256), "v": (256, 257), "density": (256, 256)}[field]
+    f = torch.randn(2, *shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    before = f.clone()
+    coef = 1e-5 if field != "density" else 1e-6
+    launches = stencil_ops.LAUNCHES
+    out = stencil_ops.diffuse(f, coef)
+    assert stencil_ops.LAUNCHES == launches + 1
+    assert torch.equal(out, stencil_ops.diffuse_reference(f, coef))
+    assert torch.equal(f, before)
+
+
+def test_stencil_kernels_refuse_bad_inputs(cuda):
+    p, div = _pressure_inputs(cuda, 1, 16, 16)
+    with pytest.raises(TypeError, match="float32"):
+        jacobi_ops.jacobi_pressure(p.double(), div, 20)
+    with pytest.raises(ValueError, match="one device"):
+        jacobi_ops.jacobi_pressure(p, div.cpu(), 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        jacobi_ops.jacobi_pressure(p.transpose(-1, -2), div, 20)
+    with pytest.raises(TypeError, match="float32"):
+        stencil_ops.diffuse(p.half(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil_ops.diffuse(p.transpose(-1, -2), 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        stencil_ops.diffuse(torch.empty(4, 4, device="meta"), 0.1)
 
 
 def _qkv(dev, dtype, batch=2, length=256, width=256, seed=3):

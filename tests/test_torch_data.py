@@ -162,6 +162,26 @@ def test_cache_gives_jax_batches(jax_cache, monkeypatch, storage, limit):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
+def test_port_writes_its_own_cache_names(tmp_path):
+    """With no JAX-written file under `cache_dir`, the port generates and
+    writes its episodes under the JAX package's name tagged `_torch` (never
+    under the JAX name, which a JAX run of the same config would then read),
+    and a second call reads them back. 2 + 2 episodes at 32^2, T = 11, on
+    the fused-step path's plain version."""
+    kw = dict(batch_size=2, num_train=2, num_val=2, grid_size=GRID,
+              cache_dir=str(tmp_path), sequence_length=11, seed=0, use_pallas=True,
+              device="cpu")
+    train, val = syn.create_data_loaders(**kw)
+    assert sorted(os.listdir(tmp_path)) == ["train_32x32_T11_n2_s0_torch.npz",
+                                            "val_32x32_T11_n2_s1_torch.npz"]
+    train2, val2 = syn.create_data_loaders(**kw)
+    for a, b in ((train, train2), (val, val2)):
+        assert set(a.data) == set(b.data)
+        for key in a.data:
+            np.testing.assert_array_equal(a.data[key], b.data[key], err_msg=key)
+    assert len(os.listdir(tmp_path)) == 2
+
+
 def test_epoch_draws_and_sequence_check():
     """Epoch order is a permutation (in order without shuffling), input
     frames lie in [5, T-5), full batches plus the ragged tail cover every

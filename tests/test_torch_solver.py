@@ -4,7 +4,9 @@ Inputs are made with numpy from a seed and handed to both packages. The JAX
 side runs its Pallas kernels in interpret mode (as the JAX tests do); the
 port's fused-step wrapper takes its plain version on CPU tensors. The
 simulator's 20-frame sequence with the fractal perturbation is held against
-the JAX package's in tests/test_torch_slice.py.
+the JAX package's in tests/test_torch_slice.py, and the per-op path with
+vorticity confinement and the gather advection in
+tests/test_torch_vorticity.py.
 Tolerances: atol 2e-5 / rtol 1e-4 on the fields, as tests/test_solver.py
 holds the JAX solver to the reference.
 """
@@ -73,14 +75,6 @@ def test_step_matches_jax(size, use_pallas):
         js = jsolver.step(js, dt=0.01, viscosity=0.001, use_pallas=use_pallas)
         ts = tsolver.step(ts, dt=0.01, viscosity=0.001, use_pallas=use_pallas)
     _assert_state(ts, js, **TOL)
-
-
-def test_step_refuses_what_is_not_ported():
-    ts = _torch_state(_random_state(16, 16, seed=2))
-    with pytest.raises(NotImplementedError, match="vorticity"):
-        tsolver.step(ts, vorticity_eps=0.1)
-    with pytest.raises(NotImplementedError, match="gather"):
-        tsolver.step(ts, max_disp=0)
 
 
 def test_fused_step_reference_matches_pallas():

@@ -6,6 +6,7 @@ tests/test_torch_attention.py).
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances are stated per test.
 """
+import copy
 import glob
 import os
 
@@ -306,8 +307,9 @@ def test_cli_trains_one_epoch_and_serves(tmp_path, monkeypatch):
     for name in ("best_model.pt", "best_model.npz", "last_model.pt", "last_model.npz",
                  "meta.json", "last_model_meta.json"):
         assert os.path.exists(os.path.join(exp_dir, name)), name
-    assert sorted(os.listdir("cache")) == ["train_32x32_T20_n4_s0.npz",
-                                           "val_32x32_T20_n2_s1.npz"]
+    # the port's own cache names: a JAX run never reads these episodes
+    assert sorted(os.listdir("cache")) == ["train_32x32_T20_n4_s0_torch.npz",
+                                           "val_32x32_T20_n2_s1_torch.npz"]
     config = load_config(config_path)
     for s in sets:
         section, rest = s.split(".", 1)
@@ -328,6 +330,47 @@ def test_cli_trains_one_epoch_and_serves(tmp_path, monkeypatch):
     assert torch.load(os.path.join(exp2, "last_model.pt"),
                       weights_only=False)["step"] == 2
     assert glob.glob(os.path.join(exp2, "last_model.npz"))
+
+
+def test_resume_auto_takes_the_newest_experiment(tmp_path, monkeypatch):
+    """`--resume auto` resumes the newest experiment directory (by its
+    timestamped name) that holds best_model.pt, and starts afresh when there
+    is none, as the JAX CLI's `latest_checkpoint` does. `fit` and the data
+    are stubbed: only the argument handed to `fit` is checked."""
+    from smokephysai_tpu_torch.train import __main__ as cli
+    from smokephysai_tpu_torch.train.checkpoint import latest_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    assert latest_checkpoint() is None
+    for name, has_ckpt in (("smokephys_20260101_000000", True),
+                           ("smokephys_20260301_000000", False),
+                           ("smokephys_20260201_000000", True)):
+        os.makedirs(os.path.join("experiments", name))
+        if has_ckpt:
+            open(os.path.join("experiments", name, "best_model.pt"), "wb").close()
+    newest = os.path.join("experiments", "smokephys_20260201_000000")
+    assert latest_checkpoint() == newest
+    seen = []
+    monkeypatch.setattr(cli, "create_data_loaders", lambda **kw: (None, None))
+    monkeypatch.setattr(cli, "fit", lambda *a, resume_from, **kw: seen.append(resume_from))
+    argv = ["--config", os.path.join(ROOT, "config", "config_64.yaml"), "--device", "cpu"]
+    cli.main(argv + ["--resume", "auto"])
+    cli.main(argv)
+    assert seen == [newest, None]
+
+
+def test_fit_refuses_a_mesh():
+    """`tpu.data_axis` x `tpu.model_axis` > 1 asks for the JAX package's
+    data- and tensor-parallel mesh, which is not ported: refused before any
+    training, not ignored."""
+    config = load_config(os.path.join(ROOT, "config", "config_64.yaml"))
+    for axes in ({"data_axis": 2}, {"model_axis": 2}):
+        cfg = copy.deepcopy(config)
+        cfg["tpu"].update(axes)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            loop.build_train_model(cfg, "cpu")
+        with pytest.raises(NotImplementedError, match="mesh"):
+            loop.fit(cfg, [], [], "unused", device="cpu")
 
 
 def test_cached_image_matrices_serve_a_later_backward():
