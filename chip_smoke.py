@@ -6,7 +6,7 @@
 From the root of a checkout, with one CUDA card:
 
 1. prints the card, the device count and nvidia-smi's name and power limit;
-2. builds the five CUDA sources with nvcc (in parallel) and prints the
+2. builds the six CUDA sources with nvcc (in parallel) and prints the
    seconds;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card (fused solver step and multi-step at 128^2, one episode and a batch
@@ -47,7 +47,22 @@ From the root of a checkout, with one CUDA card:
    bit-equal to the plain loop); timings of both kernels, the step at 1 and
    8 episodes, the chunk and the forward at B=19 and 8 (with --trace, the
    step's device time by kernel);
-9. prints the kernels' JSON line, the nvidia-smi line and, last,
+9. volumetric phase: `config/config_128cubed.yaml` at full width. The CG
+   pressure kernel against its plain version (128^3 x 30 iterations from a
+   zero and a warm p0, [2,64,64,64] with each episode equal to its solo
+   solve, 37x53x29 with 30, 0 and 1 iterations, zero divergence; every
+   solve run twice, bit-equal); two 128^3 episodes (T = 12) generated
+   through `data.synthetic3d.SyntheticSmokeDataset3D` (one CG solve per
+   step, no other kernel) and held frame by frame against the plain CG;
+   `checkpoints/smokephysnet3d_128cubed.npz` served on frame 6 -> 7 through
+   `load_model` and `make_predictor` (no kernel: float32 einsum) against
+   the same model in float64; the three flash kernels at head_dim 32
+   ([1,512,256] float32 and bf16, [8,512,256] bf16), the model with
+   `tpu.use_flash` (4 lean launches) and its input gradient (4 + 4
+   launches of the training pair) against einsum; timings of the CG, the
+   3D step, one episode, the forward and the head_dim-32 kernels, and the
+   3D step's device time by kernel (torch.profiler);
+10. prints the kernels' JSON line, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
@@ -69,6 +84,8 @@ CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet_128_best.npz")
 VORT_CONFIG = os.path.join(ROOT, "config", "config_256_vorticity.yaml")
 FINETUNE_CONFIG = os.path.join(ROOT, "config", "config_256_finetune.yaml")
 VORT_CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet_256_vort_best.npz")
+VOL_CONFIG = os.path.join(ROOT, "config", "config_128cubed.yaml")
+VOL_CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet3d_128cubed.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16 tensor
 # core FLOP/s, float32 FLOP/s outside the tensor cores
@@ -117,6 +134,24 @@ TRAIN_NUM = 64  # cuts of config_train_fast.yaml: episodes and steps
 VAL_NUM = 8
 TRAIN_STEPS = 10
 GEN_EPISODES = 8  # config_256_finetune.yaml's batch, generated at 256^2
+# the volumetric phase
+VOL_EPISODES = 2  # config_128cubed.yaml's 32 + 8 episodes cut to 2
+# CG kernel vs its plain version, ||d|| / ||ref||: float32 sums of ~2M
+# terms in other orders (2e-7 read on an H100 at 128^3 x 30 iterations)
+CG_REL_NORM = 1e-5
+# generated 128^3 episodes, kernel vs plain CG: each solve differs by
+# ~1e-7 of |p|, and dt * grad p carries that into the velocities and the
+# density (O(1)); 12 steps stay far inside 1e-5
+VOL_EPISODE_ATOL = 1e-5
+# chaos labels of those episodes: a cell that crosses the frame's mean or a
+# histogram bin edge moves a box count or a bin by one
+VOL_LABEL_ATOL = 1e-3
+VOL_RECON_F64 = 1e-4  # the float32 serving forward vs the same model in float64
+VOL_FLASH_RECON = 1e-4  # use_flash (head_dim 32, float32 kernel) vs einsum
+# input gradient of the forward, flash (forward-with-lse and backward
+# kernels, float32) vs einsum: ||d|| / ||ref||
+VOL_FLASH_GRAD_REL_NORM = 1e-4
+PARITY_VOL_MSE = 0.000489  # PARITY.md: the JAX model on JAX's held-out draws
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
 
@@ -247,6 +282,7 @@ COUNTERS = {  # kernel: (module under smokephysai_tpu_torch.ops, its counter)
     "flash_attention_tokens_bwd": ("attention", "BWD_LAUNCHES"),
     "jacobi_pressure": ("jacobi", "LAUNCHES"),
     "diffuse": ("stencil", "LAUNCHES"),
+    "cg_pressure": ("cg3d", "LAUNCHES"),
 }
 
 
@@ -707,6 +743,306 @@ def vorticity_phase(dev, name, trace):
             "timings": timings}
 
 
+def flash_check(attn_ops, q, k, v, g, heads, tag):
+    """The three flash kernels against their plain versions at one shape,
+    with the head_dim-64 checks' bounds; returns the largest |d| of each."""
+    import torch
+
+    o = attn_ops.flash_attention_tokens(q, k, v, heads)
+    r = attn_ops.flash_attention_tokens_reference(q, k, v, heads)
+    ol, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    rl, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
+    kg = attn_ops.flash_attention_tokens_bwd(q, k, v, rl, rlse, g, heads)
+    pg = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, rl, rlse, g, heads)
+    torch.cuda.synchronize()
+    errs = {}
+    ok = True
+    for kname, a, b in (("flash_attention_tokens", o, r),
+                        ("flash_attention_tokens_fwd_lse", ol, rl)):
+        err, rel = maxerr(a, b), rel_norm(a, b)
+        if q.dtype == torch.bfloat16:
+            bound = FLASH_BF16_ULPS * bf16_ulp(float(b.float().abs().max()))
+            ok &= err <= bound and rel <= FLASH_BF16_REL_NORM
+        else:
+            bound = FLASH_F32_ATOL
+            ok &= err <= bound
+        errs[kname] = err
+        say(f"kernel {kname} {tag}: max|d| {err:.3e} (bound {bound:.3e}), "
+            f"||d||/||ref|| {rel:.3e}")
+    lse_err = maxerr(lse, rlse)
+    ok &= lse_err <= LSE_ATOL
+    rels = [rel_norm(a, b) for a, b in zip(kg, pg)]
+    bwd_bound = BWD_BF16_REL_NORM if q.dtype == torch.bfloat16 else BWD_F32_REL_NORM
+    ok &= max(rels) <= bwd_bound
+    errs["flash_attention_tokens_bwd"] = max(maxerr(a, b) for a, b in zip(kg, pg))
+    say(f"kernel flash_attention_tokens_fwd_lse {tag}: lse max|d| {lse_err:.3e} (bound "
+        f"{LSE_ATOL:g}); flash_attention_tokens_bwd {tag}: ||d||/||ref|| dq {rels[0]:.3e} "
+        f"dk {rels[1]:.3e} dv {rels[2]:.3e} (bound {bwd_bound:.3e})")
+    if not ok:
+        fail(f"a flash kernel disagrees with its plain version at {tag}")
+    return errs
+
+
+def volumetric_phase(dev, name, trace):
+    """config_128cubed.yaml's path: the CG kernel against its plain version,
+    two 128^3 episodes generated through the 3D dataset (one CG solve per
+    step), smokephysnet3d_128cubed.npz served on them through load_model and
+    make_predictor (against the same model in float64), the flash kernels at
+    head_dim 32 and the model with use_flash, and their timings."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from smokephysai_tpu_torch.data.synthetic3d import SyntheticSmokeDataset3D
+    from smokephysai_tpu_torch.models.net3d import SmokePhysNet3D
+    from smokephysai_tpu_torch.ops import attention as attn_ops
+    from smokephysai_tpu_torch.ops import cg3d as cg_ops
+    from smokephysai_tpu_torch.physics import solver3d
+    from smokephysai_tpu_torch.physics.simulator3d import simulate_episode3d
+    from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    config = load_config(VOL_CONFIG)
+    sim, data, tpu = config["simulation"], config["data"], config["tpu"]
+    dt, visc = sim["dt"], sim["viscosity"]
+    grid = tuple(data["grid_size"])
+    T, seed = data["sequence_length"], tpu["seed"]
+    iters = 30  # step3d's num_cg_iters, which no config sets
+    gen = torch.Generator().manual_seed(4)
+
+    # ------------------------------------------------ CG kernel vs plain version
+    cg_err, cg_rel = 0.0, 0.0
+    for shape, k, warm in (((1, *grid), iters, False), ((1, *grid), iters, True),
+                           ((2, 64, 64, 64), iters, True), ((1, 37, 53, 29), iters, True),
+                           ((1, 37, 53, 29), 0, True), ((1, 37, 53, 29), 1, True)):
+        div = torch.randn(*shape, generator=gen).to(dev)
+        p0 = ((0.1 * torch.randn(*shape, generator=gen)).to(dev) if warm
+              else torch.zeros(*shape, device=dev))
+        before = (p0.clone(), div.clone())
+        out = cg_ops.cg_pressure(p0, div, k)
+        again = cg_ops.cg_pressure(p0, div, k)
+        ref = cg_ops.cg_pressure_reference(p0, div, k)
+        solo = [cg_ops.cg_pressure(p0[e:e + 1].contiguous(), div[e:e + 1].contiguous(), k)
+                for e in range(shape[0])]
+        torch.cuda.synchronize()
+        err = maxerr(out, ref)
+        rel = rel_norm(out, ref) if err > 0.0 else 0.0
+        solo_ok = all(torch.equal(out[e:e + 1], s_) for e, s_ in enumerate(solo))
+        kept = torch.equal(p0, before[0]) and torch.equal(div, before[1])
+        say(f"kernel cg_pressure {list(shape)} x{k} from {'a warm' if warm else 'zero'} p0: "
+            f"||d||/||ref|| {rel:.3e} (bound {CG_REL_NORM:g}), max|d| {err:.3e}, two runs "
+            f"bit-equal {torch.equal(out, again)}, each episode = its solo solve {solo_ok}, "
+            f"inputs unchanged {kept}")
+        if not (rel <= CG_REL_NORM and torch.equal(out, again) and solo_ok and kept):
+            fail("cg_pressure disagrees with its plain version, itself or its solo solves")
+        cg_err, cg_rel = max(cg_err, err), max(cg_rel, rel)
+        del div, p0, before, out, again, ref, solo
+    zero = torch.zeros(2, 32, 32, 32, device=dev)
+    zout = cg_ops.cg_pressure(zero, zero, iters)
+    say(f"kernel cg_pressure zero divergence from p0 = 0: p stays p0 exactly "
+        f"{torch.equal(zout, zero)} (the denom > 0 and rs > 0 guards)")
+    if not torch.equal(zout, zero):
+        fail("cg_pressure moves p on zero divergence")
+
+    # ------------------------------------------------ generation (dataset path)
+    reset_counts()
+    t = time.time()
+    ds = SyntheticSmokeDataset3D(num_samples=VOL_EPISODES, grid_size=grid,
+                                 sequence_length=T, seed=seed,
+                                 use_pallas=tpu["use_pallas"], device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    gen_counts = read_counts()
+    say(f"volumetric generation: {VOL_EPISODES} episodes at {grid}, T={T}, dt {dt}, "
+        f"viscosity {visc}, {iters} CG iterations, through SyntheticSmokeDataset3D "
+        f"(use_pallas {tpu['use_pallas']}) in {gen_s:.2f} s (host clock, first call, "
+        f"labels and the host copy included); launches {gen_counts}")
+    expect_counts("volumetric generation", gen_counts, cg_pressure=VOL_EPISODES * T)
+    seqs = ds._sequences
+    labels = ds._chaos
+    if not (torch.isfinite(seqs).all() and torch.isfinite(labels).all()):
+        fail("non-finite volumetric episodes or labels")
+    src = [torch.from_numpy(ds.data[k]).to(dev)
+           for k in ("source_xyz", "source_intensity", "source_active")]
+    pseqs, plabels = simulate_episode3d(*src, grid_size=grid, num_steps=T, dt=dt,
+                                        viscosity=visc, use_pallas=False)
+    frame_err = (seqs - pseqs).abs().amax(dim=(0, 2, 3, 4))
+    seq_err, lab_err = float(frame_err.max()), maxerr(labels, plabels)
+    say(f"volumetric generation vs the plain CG on the card: density max|d| per frame "
+        f"{[float(f'{x:.3e}') for x in frame_err.tolist()]} (bound {VOL_EPISODE_ATOL:g}); "
+        f"chaos labels max|d| {lab_err:.3e} (bound {VOL_LABEL_ATOL:g}), labels "
+        f"{labels.tolist()}")
+    if not (seq_err <= VOL_EPISODE_ATOL and lab_err <= VOL_LABEL_ATOL):
+        fail("generated volumetric episodes disagree with the plain CG path")
+    del pseqs
+
+    # ------------------------------------------------ serving
+    if not os.path.exists(VOL_CHECKPOINT):
+        fail(f"checkpoint {VOL_CHECKPOINT} is missing")
+    t = time.time()
+    model = load_model(config, VOL_CHECKPOINT, dev)
+    predict = make_predictor(model, chaos_seed=seed)
+    torch.cuda.synchronize()
+    say(f"volumetric serving: model ready in {time.time() - t:.2f} s (hidden "
+        f"{model.hidden_dim}, {model.num_layers} layers, "
+        f"{model.layer_0.chaos_attention.num_heads} heads, compute {model.dtype}, flash "
+        f"{model.layer_0.chaos_attention.use_flash}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters)")
+    tf = T // 2
+    x = seqs[:1, tf][..., None].contiguous()
+    truth = seqs[:1, tf + 1][..., None]
+    reset_counts()
+    t = time.time()
+    out = predict(x)
+    torch.cuda.synchronize()
+    serve_counts = read_counts()
+    say(f"volumetric serving: frame {tf} -> {tf + 1} of episode 0 at batch 1 in "
+        f"{(time.time() - t) * 1e3:.1f} ms (host clock, first call); launches {serve_counts}")
+    expect_counts("volumetric serving", serve_counts)
+    recon, phys = out["reconstructed"], out["physics_features"]
+    if tuple(recon.shape) != (1, *grid, 1) or tuple(phys.shape) != (1, 3):
+        fail(f"unexpected volumetric output shapes {tuple(recon.shape)}, {tuple(phys.shape)}")
+    if not (torch.isfinite(recon).all() and torch.isfinite(phys).all()):
+        fail("non-finite volumetric model outputs")
+    mc = config["model"]
+    model64 = SmokePhysNet3D(mc["hidden_dim"], mc["num_layers"], mc["num_heads"],
+                             mc["output_channels"], mc["chaos_strength"],
+                             dtype=torch.float64).double().to(dev)
+    model64.load_state_dict(model.state_dict(), strict=True)
+    out64 = make_predictor(model64.eval(), chaos_seed=seed)(x.double())
+    recon_err = maxerr(recon, out64["reconstructed"])
+    mse = float(((recon - truth) ** 2).mean())
+    say(f"volumetric serving: float32 vs float64 on the card: reconstructed max|d| "
+        f"{recon_err:.3e} (bound {VOL_RECON_F64:g}), physics max|d| "
+        f"{maxerr(phys, out64['physics_features']):.3e}; next-volume MSE {mse:.6e} "
+        f"(PARITY.md: {PARITY_VOL_MSE} for the JAX model on JAX's held-out draws, "
+        f"other episodes; not a target)")
+    if not (recon_err <= VOL_RECON_F64 and math.isfinite(mse)):
+        fail("the volumetric forward disagrees with its float64 run")
+    del model64, out64
+
+    # ------------------------------------------------ head_dim 32 (C.3)
+    width, heads = config["model"]["hidden_dim"], config["model"]["num_heads"]
+    hd = width // heads
+    flash_errs = {}
+    for batch, dtype in ((1, torch.float32), (1, torch.bfloat16), (8, torch.bfloat16)):
+        q, k, v, g = (torch.randn(batch, 512, width, generator=gen).to(dev, dtype)
+                      for _ in range(4))
+        tag = f"[{batch},512,{width}] {str(dtype)[6:]} head_dim {hd}"
+        for kname, err in flash_check(attn_ops, q, k, v, g, heads, tag).items():
+            if dtype == torch.bfloat16:
+                flash_errs[kname] = max(flash_errs.get(kname, 0.0), err)
+    cfg_flash = copy.deepcopy(config)
+    cfg_flash["tpu"]["use_flash"] = True
+    model_fl = load_model(cfg_flash, VOL_CHECKPOINT, dev)
+    reset_counts()
+    out_fl = make_predictor(model_fl, chaos_seed=seed)(x)
+    torch.cuda.synchronize()
+    flash_serve_counts = read_counts()
+    fl_err = maxerr(out_fl["reconstructed"], recon)
+    say(f"volumetric serving with use_flash (head_dim {hd}, float32 kernel) vs einsum: "
+        f"reconstructed max|d| {fl_err:.3e} (bound {VOL_FLASH_RECON:g}); launches "
+        f"{flash_serve_counts}")
+    expect_counts("volumetric serving with use_flash", flash_serve_counts,
+                  flash_attention_tokens=model.num_layers)
+    if not fl_err <= VOL_FLASH_RECON:
+        fail("the volumetric forward with use_flash disagrees with einsum")
+    # the input gradient of the eval forward (what a gradient attack on the
+    # evaluation takes): the forward-with-lse and backward kernels
+    grads = {}
+    for tag, m in (("flash", model_fl), ("einsum", model)):
+        m.requires_grad_(False)
+        xg = x.clone().requires_grad_()
+        reset_counts()
+        o = m(xg, generator=torch.Generator().manual_seed(seed))
+        (o["reconstructed"] - truth).pow(2).mean().backward()
+        torch.cuda.synchronize()
+        grads[tag] = (xg.grad, read_counts())
+    grad_rel = rel_norm(grads["flash"][0], grads["einsum"][0])
+    grad_counts = grads["flash"][1]
+    say(f"volumetric input gradient, flash vs einsum: ||d||/||ref|| {grad_rel:.3e} "
+        f"(bound {VOL_FLASH_GRAD_REL_NORM:g}); launches {grad_counts}")
+    expect_counts("volumetric input gradient with use_flash", grad_counts,
+                  flash_attention_tokens_fwd_lse=model.num_layers,
+                  flash_attention_tokens_bwd=model.num_layers)
+    expect_counts("volumetric input gradient, einsum", grads["einsum"][1])
+    if not grad_rel <= VOL_FLASH_GRAD_REL_NORM:
+        fail("the flash input gradient disagrees with einsum")
+    del model_fl, out_fl, grads, o, xg
+
+    # ------------------------------------------------ timing
+    timings = {}
+    div = torch.randn(1, *grid, generator=gen).to(dev)
+    p0 = torch.zeros(1, *grid, device=dev)
+    ms = timed(lambda: cg_ops.cg_pressure(p0, div, iters))
+    plain_ms = timed(lambda: cg_ops.cg_pressure_reference(p0, div, iters), runs=5)
+    cells = div.numel()
+    # per cell and iteration: matvec 8 (6 adds, a multiply, the negation),
+    # d.Ad 2, p update 2, r update 2, r.r 2, d = r + beta d 2
+    cg_bound = lower_bound(3 * 4 * cells, 18 * cells * iters + 12 * cells, F32_FLOPS)
+    timings["cg_pressure"] = (ms, plain_ms, *cg_bound)
+    say(f"time cg_pressure [1,{grid[0]},{grid[1]},{grid[2]}] x{iters} on {name}: kernel "
+        f"{ms:.4f} ms ({cg_ops.launches_per_solve(iters)} launches), plain {plain_ms:.4f} "
+        f"ms, bound {cg_bound[0]:.6f} ms ({cg_bound[1]})")
+    state = solver3d.init_state3d(grid, device=dev, batch=(1,))
+    state = state.replace(density=seqs[:1, tf].contiguous())
+    step_ms = timed(lambda: solver3d.step3d(state, dt, visc, use_pallas=True), runs=10)
+    plain_step_ms = timed(lambda: solver3d.step3d(state, dt, visc, use_pallas=False), runs=5)
+    say(f"time volumetric step {grid} x1 on {name}: CG kernel {step_ms:.4f} ms, plain CG "
+        f"{plain_step_ms:.4f} ms")
+    src1 = [t_[:1] for t_ in src]
+    episode_ms = timed(lambda: simulate_episode3d(*src1, grid_size=grid, num_steps=T, dt=dt,
+                                                  viscosity=visc, use_pallas=True),
+                       runs=3, warmup=1)
+    say(f"time volumetric episode (1 x {T} steps at {grid}, sources and chaos label "
+        f"included) on {name}: {episode_ms:.4f} ms")
+    fwd_ms = timed(lambda: predict(x), runs=10)
+    say(f"time volumetric serving forward B=1 (float32, einsum) on {name}: {fwd_ms:.3f} ms")
+    profile(lambda: solver3d.step3d(state, dt, visc, use_pallas=True), 5,
+            f"volumetric step {grid}", top=12 if trace else 6)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for batch in (1, 8):
+        q, k, v, g = (torch.randn(batch, 512, width, generator=gen).to(dev, torch.bfloat16)
+                      for _ in range(4))
+        qh, kh, vh = (t_.view(batch, 512, heads, hd).transpose(1, 2).detach().requires_grad_()
+                      for t_ in (q, k, v))
+        gh = g.view(batch, 512, heads, hd).transpose(1, 2)
+        o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+        fwd_flops = 4 * batch * heads * 512 * 512 * hd
+        io = 4 * batch * 512 * width * 2
+        lean = (timed(lambda: attn_ops.flash_attention_tokens(q, k, v, heads)),
+                timed(lambda: attn_ops.flash_attention_tokens_reference(q, k, v, heads)),
+                *lower_bound(io, fwd_flops, BF16_FLOPS),
+                timed(lambda: sdpa(qh.detach(), kh.detach(), vh.detach())))
+        fwd = (timed(lambda: attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)),
+               timed(lambda: attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)),
+               *lower_bound(io + batch * heads * 512 * 4, fwd_flops, BF16_FLOPS),
+               timed(lambda: sdpa(qh, kh, vh)))
+        oh = sdpa(qh, kh, vh)
+        bwd = (timed(lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads)),
+               timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
+                   q, k, v, o, lse, g, heads), runs=5),
+               *lower_bound(2 * io + batch * heads * 512 * 4,
+                            10 * batch * heads * 512 * 512 * hd, BF16_FLOPS),
+               timed(lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)))
+        for kname, t_ in (("flash_attention_tokens", lean),
+                          ("flash_attention_tokens_fwd_lse", fwd),
+                          ("flash_attention_tokens_bwd", bwd)):
+            timings[(kname, batch)] = t_
+            say(f"time {kname} [{batch},512,{width}] bf16 head_dim {hd} on {name}: kernel "
+                f"{t_[0]:.4f} ms, plain {t_[1]:.4f} ms, SDPA {t_[4]:.4f} ms, bound "
+                f"{t_[2]:.6f} ms ({t_[3]})")
+        del q, k, v, g, qh, kh, vh, gh, o, lse, oh
+    del model, predict, ds, seqs
+    return {"gen_counts": gen_counts, "flash_counts": {**flash_serve_counts, **{
+        k_: grad_counts[k_] for k_ in ("flash_attention_tokens_fwd_lse",
+                                       "flash_attention_tokens_bwd")}},
+            "cg_err": cg_err, "flash_errs": flash_errs, "timings": timings, "hd": hd,
+            "width": width, "heads": heads}
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--trace"]):
@@ -724,6 +1060,7 @@ def main():
     from smokephysai_tpu_torch import inference
     from smokephysai_tpu_torch.ops import _build
     from smokephysai_tpu_torch.ops import attention as attn_ops
+    from smokephysai_tpu_torch.ops import cg3d as cg_ops
     from smokephysai_tpu_torch.ops import fused_step as step_ops
     from smokephysai_tpu_torch.ops import jacobi as jacobi_ops
     from smokephysai_tpu_torch.ops import stencil as stencil_ops
@@ -756,9 +1093,10 @@ def main():
                       (attn_ops.SOURCE, attn_ops.FLAGS),
                       (attn_ops.BWD_SOURCE, attn_ops.FLAGS),
                       (jacobi_ops.SOURCE, jacobi_ops.FLAGS),
-                      (stencil_ops.SOURCE, stencil_ops.FLAGS)])
+                      (stencil_ops.SOURCE, stencil_ops.FLAGS),
+                      (cg_ops.SOURCE, cg_ops.FLAGS)])
     build_s = time.time() - t
-    say(f"build: five sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
+    say(f"build: six sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1091,6 +1429,9 @@ def main():
     # ---------------------------------------------------------------- vorticity
     vort = vorticity_phase(dev, name, trace)
 
+    # ---------------------------------------------------------------- volumetric
+    vol = volumetric_phase(dev, name, trace)
+
     # ---------------------------------------------------------------- report
     fs = timings[("fused_step", 1)]
     fl = timings[("flash_attention_tokens", serve_batch)]
@@ -1163,6 +1504,35 @@ def main():
             "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
             "library_ms": None,
             "shape": shape,
+        })
+    t_ = vol["timings"]["cg_pressure"]
+    kernels.append({
+        "name": "cg_pressure",
+        "route": "cuda",
+        "source": "smokephysai_tpu_torch/csrc/cg3d.cu",
+        "replaces": "smokephysai_tpu/ops/pallas/cg3d.py:86",
+        "launches": vol["gen_counts"]["cg_pressure"],
+        "max_abs_err": vol["cg_err"],
+        "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+        "library_ms": None,
+        "shape": "p0, div [1,128,128,128] f32, 30 iterations (61 launches per solve)",
+    })
+    hd, vw, vh = vol["hd"], vol["width"], vol["heads"]
+    for kname, source, line in (
+            ("flash_attention_tokens", "flash_tokens.cu", 521),
+            ("flash_attention_tokens_fwd_lse", "flash_tokens.cu", 315),
+            ("flash_attention_tokens_bwd", "flash_bwd.cu", 366)):
+        t_ = vol["timings"][(kname, 1)]
+        kernels.append({
+            "name": f"{kname}[head_dim={hd}]",
+            "route": "cuda",
+            "source": f"smokephysai_tpu_torch/csrc/{source}",
+            "replaces": f"smokephysai_tpu/ops/pallas/attention.py:{line}",
+            "launches": vol["flash_counts"][kname],
+            "max_abs_err": vol["flash_errs"][kname],
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": t_[4],
+            "shape": f"[1,512,{vw}] bf16, {vh} heads of {hd} (the volumetric trunk)",
         })
     say(f"wall: {time.time() - T0:.1f} s")
     say(json.dumps({"kernels": kernels}))

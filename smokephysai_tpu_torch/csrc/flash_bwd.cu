@@ -28,12 +28,21 @@
 // second pass that would recompute S and dP again, at the price of a sum
 // whose order varies from run to run. Q, K, V and dO are read in place
 // from [B, L, D] at the head's column offset (head h = columns
-// [h*64, (h+1)*64)), so no head-major transposes surround the call.
+// [h*hd, (h+1)*hd)), so no head-major transposes surround the call.
 // bf16: 4 warps, each owning 16 keys of the tile; S^T and dP^T tiles go
 // through shared memory for the elementwise step, P^T and dS^T are kept in
 // shared memory as bf16 for the three products that read them. float32
 // (for checking the algorithm at full precision): a scalar kernel, one
 // thread per key. wgmma and TMA are not used yet.
+//
+// Head dim: a template parameter, instantiated for 16, 32, 64 and 128 (the
+// launcher picks it from D / heads). The tiles' row pitch, the shared
+// memory, the dK/dV fragments and the WMMA loops over the head dim scale
+// with it; the 64-key and 64-query tiles do not. At head_dim 64 the code
+// computes what it did when 64 was built in. Shared memory per block, bf16:
+// 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 8 * 16 * L4 * 4 + 2 * 64 * 72 * 2 +
+// 64 * L4 * 4 bytes with L4 = max(64, hd) + 4 (106 KB at 64, 186 KB at 128);
+// float32: (4 * 64 * (hd + 1) + 64 * 65) * 4 (81 KB at 64, 145 KB at 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -42,32 +51,44 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int HD = 64;       // head dim
 constexpr int BT = 64;       // keys per block and queries per tile
 constexpr int WARPS = 4;     // bf16 kernel: 16 keys per warp
-constexpr int LDT = HD + 8;  // bf16 tile row pitch (elements)
-constexpr int LDS = BT + 4;  // float tile row pitch
 constexpr int LDP = BT + 8;  // bf16 P^T / dS^T row pitch
-
-constexpr size_t TILE_BYTES = BT * LDT * sizeof(__nv_bfloat16);
 constexpr size_t VEC_BYTES = BT * sizeof(float);
-constexpr size_t WS_BYTES = 16 * LDS * sizeof(float);   // one warp's f32 tile
 constexpr size_t PT_BYTES = BT * LDP * sizeof(__nv_bfloat16);
-constexpr size_t DQ_BYTES = BT * LDS * sizeof(float);
-// sK sV sQ sdO | lse delta | S^T dP^T per warp | P^T dS^T | dQ staging
-constexpr size_t SMEM_BF16 = 4 * TILE_BYTES + 2 * VEC_BYTES +
-                             2 * WARPS * WS_BYTES + 2 * PT_BYTES + DQ_BYTES;
 
+// the tile geometry of head dim HD
+template <int HD>
+struct Geo {
+  static constexpr int LDT = HD + 8;  // bf16 tile row pitch (elements)
+  // float tile row pitch: S^T and dP^T (64 queries wide), dK, dV and dQ
+  // (HD wide)
+  static constexpr int LDS = (HD > BT ? HD : BT) + 4;
+  static constexpr size_t TILE_BYTES = BT * LDT * sizeof(__nv_bfloat16);
+  static constexpr size_t WS_BYTES = 16 * LDS * sizeof(float);  // one warp's f32 tile
+  static constexpr size_t DQ_BYTES = BT * LDS * sizeof(float);
+  // sK sV sQ sdO | lse delta | S^T dP^T per warp | P^T dS^T | dQ staging
+  static constexpr size_t SMEM_BF16 = 4 * TILE_BYTES + 2 * VEC_BYTES +
+                                      2 * WARPS * WS_BYTES + 2 * PT_BYTES + DQ_BYTES;
+  // float32 kernel: K V Q dO rows of HD + 1 floats, dS rows of BT + 1
+  static constexpr int P32 = HD + 1;
+  static constexpr int PDS = BT + 1;
+  static constexpr size_t SMEM_F32 = (4 * BT * P32 + BT * PDS) * sizeof(float);
+};
+
+template <int HD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int D) {
-  // 64 rows x 64 bf16 = 512 16-byte chunks
-  for (int i = threadIdx.x; i < BT * HD / 8; i += blockDim.x) {
-    int r = i >> 3, c = (i & 7) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) =
+  // 64 rows x HD bf16 in 16-byte chunks
+  constexpr int CHUNKS = HD / 8;
+  for (int i = threadIdx.x; i < BT * CHUNKS; i += blockDim.x) {
+    int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    *reinterpret_cast<uint4*>(dst + r * Geo<HD>::LDT + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -78,6 +99,10 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int L, int D,
                       float scale) {
+  using G = Geo<HD>;
+  constexpr int LDT = G::LDT, LDS = G::LDS;
+  constexpr size_t TILE_BYTES = G::TILE_BYTES, WS_BYTES = G::WS_BYTES;
+  constexpr int HALF = HD / 2;  // dK / dV columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* p = smem;
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
@@ -98,8 +123,8 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
   const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
   const int k0 = blockIdx.x * BT;
-  load_tile(sK, k + base + (size_t)k0 * D, D);
-  load_tile(sV, v + base + (size_t)k0 * D, D);
+  load_tile<HD>(sK, k + base + (size_t)k0 * D, D);
+  load_tile<HD>(sV, v + base + (size_t)k0 * D, D);
 
   // the warp's 16 keys: rows w*16.. of the K and V tiles, as A fragments
   wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fk[HD / 16], fv[HD / 16];
@@ -121,8 +146,8 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int r = lane >> 1, half = lane & 1;
   for (int q0 = 0; q0 < L; q0 += BT) {
     __syncthreads();  // every warp is done with the previous query tile
-    load_tile(sQ, q + base + (size_t)q0 * D, D);
-    load_tile(sdO, dout + base + (size_t)q0 * D, D);
+    load_tile<HD>(sQ, q + base + (size_t)q0 * D, D);
+    load_tile<HD>(sdO, dout + base + (size_t)q0 * D, D);
     for (int i = threadIdx.x; i < BT; i += blockDim.x) {
       sLse[i] = lse[row_base + q0 + i];
       sDelta[i] = delta[row_base + q0 + i];
@@ -168,7 +193,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncwarp();
 
-    // dV_w += P^T_w dO and dK_w += dS^T_w Q (16 keys x 64 dims)
+    // dV_w += P^T_w dO and dK_w += dS^T_w Q (16 keys x HD dims)
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk) {
 #pragma unroll
@@ -183,7 +208,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();  // dS^T of all four warps is in shared memory
 
-    // dQ rows w*16.. of this query tile = dS (16 x 64 keys) K (64 x 64),
+    // dQ rows w*16.. of this query tile = dS (16 x 64 keys) K (64 x HD),
     // with dS read as the transpose of dS^T
 #pragma unroll
     for (int nt = 0; nt < HD / 16; ++nt) {
@@ -215,10 +240,10 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       wmma::store_matrix_sync(sS + nt * 16, which == 0 ? fdk[nt] : fdv[nt],
                               LDS, wmma::mem_row_major);
     __syncwarp();
-    __nv_bfloat16* dst = outs[which] + base + (size_t)(k0 + warp * 16 + r) * D + half * 32;
-    const float* src = sS + r * LDS + half * 32;
+    __nv_bfloat16* dst = outs[which] + base + (size_t)(k0 + warp * 16 + r) * D + half * HALF;
+    const float* src = sS + r * LDS + half * HALF;
 #pragma unroll
-    for (int c = 0; c < 32; c += 8) {
+    for (int c = 0; c < HALF; c += 8) {
       uint4 packed;
       __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
@@ -230,9 +255,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // float32: one thread per key of the block's 64-key tile
-constexpr int P32 = HD + 1;  // row pitch, one bank apart
-constexpr size_t SMEM_F32 = 5 * BT * P32 * sizeof(float);
-
+template <int HD>
 __global__ void __launch_bounds__(BT)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -241,6 +264,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* dq,
                      float* __restrict__ dk, float* __restrict__ dv, int L,
                      int D, float scale) {
+  constexpr int P32 = Geo<HD>::P32;  // row pitch, one bank apart
+  constexpr int PDS = Geo<HD>::PDS;  // dS row pitch
   extern __shared__ __align__(16) float smem32[];
   float* sK = smem32;
   float* sV = sK + BT * P32;
@@ -283,13 +308,13 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         gv[c] += pr * sdO[i * P32 + c];
         gk[c] += ds * sQ[i * P32 + c];
       }
-      sDS[i * P32 + t] = ds;
+      sDS[i * PDS + t] = ds;
     }
     __syncthreads();
     // thread t as query row t: its share of dQ from this key tile
     for (int c = 0; c < HD; ++c) {
       float acc = 0.0f;
-      for (int j = 0; j < BT; ++j) acc += sDS[t * P32 + j] * sK[j * P32 + c];
+      for (int j = 0; j < BT; ++j) acc += sDS[t * PDS + j] * sK[j * P32 + c];
       atomicAdd(dq + base + (size_t)(q0 + t) * D + c, acc);
     }
   }
@@ -300,38 +325,30 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// dtype: 0 = bfloat16, 1 = float32. q, k, v, dout [B, L, D] contiguous,
-// 16-byte aligned, in `dtype`; lse, delta [B, heads, L] float32; dq a
-// zeroed float32 [B, L, D] buffer the kernel adds into; dk, dv [B, L, D] in
-// `dtype`. Needs head_dim 64 (D = 64 * heads) and L a multiple of 64.
-extern "C" int flash_tokens_bwd(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, void* dk,
-                                void* dv, int B, int L, int D, int heads,
-                                float scale, int dtype, void* stream) {
-  if (B <= 0 || L <= 0 || L % BT != 0 || heads <= 0 || D != heads * HD ||
-      B > 65535 || heads > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, void* dk, void* dv,
+           int B, int L, int D, int heads, float scale, int dtype,
+           cudaStream_t st) {
   dim3 grid(L / BT, heads, B);
   if (dtype == 0) {
+    constexpr size_t smem = Geo<HD>::SMEM_BF16;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BF16);
+        flash_bwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_bf16_kernel<<<grid, WARPS * 32, SMEM_BF16, st>>>(
+    flash_bwd_bf16_kernel<HD><<<grid, WARPS * 32, smem, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
         (const float*)lse, (const float*)delta, (float*)dq,
         (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, L, D, scale);
   } else if (dtype == 1) {
+    constexpr size_t smem = Geo<HD>::SMEM_F32;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_F32);
+        flash_bwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_f32_kernel<<<grid, BT, SMEM_F32, st>>>(
+    flash_bwd_f32_kernel<HD><<<grid, BT, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq, (float*)dk, (float*)dv, L, D, scale);
@@ -339,4 +356,29 @@ extern "C" int flash_tokens_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = bfloat16, 1 = float32. q, k, v, dout [B, L, D] contiguous,
+// 16-byte aligned, in `dtype`; lse, delta [B, heads, L] float32; dq a
+// zeroed float32 [B, L, D] buffer the kernel adds into; dk, dv [B, L, D] in
+// `dtype`. Needs head_dim D / heads in {16, 32, 64, 128} and L a multiple
+// of 64.
+extern "C" int flash_tokens_bwd(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, void* dk,
+                                void* dv, int B, int L, int D, int heads,
+                                float scale, int dtype, void* stream) {
+  if (B <= 0 || L <= 0 || L % BT != 0 || heads <= 0 || D % heads != 0 ||
+      B > 65535 || heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D / heads) {
+    case 16: return launch<16>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
+    case 32: return launch<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
+    case 64: return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
+    case 128: return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention import flash_attention_tokens_trainable
-from .layers import Linear
+from .layers import Linear, wide
 
 Tensor = torch.Tensor
 
@@ -104,7 +104,8 @@ class ChaosAttention(nn.Module):
         k = self.k_proj(x)
         v = self.v_proj(x)
         feats = self.chaos_proj(field)
-        gate = torch.sigmoid(self.chaos_gate(feats).float()).to(self.dtype)
+        acc = wide(self.dtype)
+        gate = torch.sigmoid(self.chaos_gate(feats).to(acc)).to(self.dtype)
         q_eff = q + self.strength * gate * feats
 
         if self.use_flash:
@@ -116,9 +117,9 @@ class ChaosAttention(nn.Module):
 
         split = lambda t: t.reshape(B, L, h, hd).transpose(1, 2)
         scores = torch.einsum(
-            "bhid,bhjd->bhij", split(q_eff).float(), split(k).float()
+            "bhid,bhjd->bhij", split(q_eff).to(acc), split(k).to(acc)
         ) / float(np.sqrt(np.float32(hd)))
         attn = torch.softmax(scores, dim=-1).to(self.dtype)
-        out = torch.einsum("bhij,bhjd->bhid", attn.float(), split(v).float())
+        out = torch.einsum("bhij,bhjd->bhid", attn.to(acc), split(v).to(acc))
         out = out.transpose(1, 2).reshape(B, L, D)
         return self.out_proj(out).to(self.out_dtype)

@@ -1,16 +1,19 @@
-"""Carry SmokePhysNet variables between the JAX package and this port.
+"""Carry SmokePhysNet and SmokePhysNet3D variables between the JAX package
+and this port.
 
 `load_npz_variables` reads the flat npz export (keys such as
 ``params/['layer_0']['chaos_attention']['q_proj']['kernel']``) with numpy
 alone. `jax_variables_to_state_dict` turns the {params, batch_stats} tree
-of numpy arrays into `models/net.SmokePhysNet`'s state_dict;
+of numpy arrays into the state_dict of `models/net.SmokePhysNet` or
+`models/net3d.SmokePhysNet3D`;
 `model_to_flat_variables` and `save_npz_variables` go the other way, so a
 model the port trained loads through `train/serving.load_model` (and the
 JAX package's) like an exported JAX checkpoint:
 
   * Dense kernel [in, out]           -> Linear weight [out, in]
   * Conv kernel HWIO [kh, kw, I, O]  -> Conv weight OIHW
-  * ConvTranspose weight             -> kept (both store torch's layout)
+  * Conv3D kernel DHWIO              -> Conv3D weight OIDHW
+  * ConvTranspose weight (2D and 3D) -> kept (both store torch's layout)
   * LayerNorm / BatchNorm scale      -> weight; the BatchNorm_0 level drops
   * batch_stats mean / var           -> running_mean / running_var
 """
@@ -57,6 +60,8 @@ def jax_variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                 value, leaf = value.T, "weight"
             elif value.ndim == 4:
                 value, leaf = value.transpose(3, 2, 0, 1), "weight"
+            elif value.ndim == 5:
+                value, leaf = value.transpose(4, 3, 0, 1, 2), "weight"
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
         elif leaf == "scale":
@@ -77,7 +82,7 @@ def model_to_flat_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The inverse of `jax_variables_to_state_dict`, flattened: the model's
     parameters and BatchNorm running statistics as the flat npz keys of
     the JAX export (``{col}/['mod']...['leaf']``), float32 numpy."""
-    from .layers import BatchNorm, Conv, LayerNorm, Linear
+    from .layers import BatchNorm, Conv, Conv3D, LayerNorm, Linear
 
     kinds = {name: type(mod) for name, mod in model.named_modules()}
     flat: Dict[str, np.ndarray] = {}
@@ -90,6 +95,8 @@ def model_to_flat_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
             value, leaf = value.T, "kernel"
         elif leaf == "weight" and kind is Conv:
             value, leaf = value.transpose(2, 3, 1, 0), "kernel"
+        elif leaf == "weight" and kind is Conv3D:
+            value, leaf = value.transpose(2, 3, 4, 1, 0), "kernel"
         elif leaf == "weight" and kind in (LayerNorm, BatchNorm):
             leaf = "scale"
         elif leaf in ("running_mean", "running_var"):

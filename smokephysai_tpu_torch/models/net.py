@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.image import adaptive_avg_pool2d, interpolate_bilinear
 from .chaos_attention import ChaosAttention, chaos_fields
-from .layers import BatchNorm, Conv, ConvTranspose2x, LayerNorm, Linear, dropout
+from .layers import BatchNorm, Conv, ConvTranspose2x, LayerNorm, Linear, dropout, wide
 
 Tensor = torch.Tensor
 
@@ -44,7 +44,7 @@ class ChaosTransformerLayer(nn.Module):
         super().__init__()
         self.fast_math = fast_math
         self.dropout = DROPOUT
-        self.res_dtype = dtype if fast_math else torch.float32
+        self.res_dtype = dtype if fast_math else wide(dtype)
         self.chaos_attention = ChaosAttention(
             dim, num_heads, chaos_strength, dtype=dtype,
             out_dtype=self.res_dtype, use_flash=use_flash,

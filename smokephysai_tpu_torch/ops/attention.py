@@ -31,7 +31,7 @@ Tensor = torch.Tensor
 SOURCE = "flash_tokens.cu"
 BWD_SOURCE = "flash_bwd.cu"
 FLAGS = ()
-HEAD_DIM = 64  # the kernels' head dim
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are instantiated for
 BLOCK = 64  # the kernels' query and key tile
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -138,8 +138,8 @@ def _check_qkv(name: str, q: Tensor, k: Tensor, v: Tensor, num_heads: int):
 
 
 def _check_launch(name: str, num_heads: int, *tensors: Tensor):
-    """What the kernels take: CUDA, bf16 or float32, head_dim 64, L a
-    multiple of 64, contiguous and 16-byte aligned."""
+    """What the kernels take: CUDA, bf16 or float32, head_dim D / heads in
+    `HEAD_DIMS`, L a multiple of 64, contiguous and 16-byte aligned."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -148,8 +148,9 @@ def _check_launch(name: str, num_heads: int, *tensors: Tensor):
                         f"(bfloat16 or float32)")
     B, L, D = q.shape
     hd = D // num_heads
-    if hd != HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {hd}, the kernel takes {HEAD_DIM}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd}; the kernels take head dims "
+                         f"{', '.join(map(str, HEAD_DIMS))}")
     if L % BLOCK:
         raise ValueError(f"{name}: L={L} is not a multiple of {BLOCK}")
     for t in tensors:
@@ -182,8 +183,8 @@ def flash_attention_tokens(
     q: Tensor, k: Tensor, v: Tensor, num_heads: int, temperature: float = 1.0,
 ) -> Tensor:
     """Multi-head attention on token-major [B, L, D], forward only. CUDA
-    tensors launch the lean kernel (bf16 or float32, head_dim 64, L a
-    multiple of 64); CPU tensors take `flash_attention_tokens_reference`.
+    tensors launch the lean kernel (bf16 or float32, head_dim in
+    `HEAD_DIMS`, L a multiple of 64); CPU tensors take `flash_attention_tokens_reference`.
     The kernel's output has no gradient, so a CUDA call that would need one
     raises: use `flash_attention_tokens_trainable` there."""
     global LAUNCHES

@@ -102,8 +102,11 @@ def build_train_model(config: Dict, device="cuda") -> SmokePhysNet:
     `tpu.train_compute_dtype`, `tpu.use_flash` and `tpu.fast_math` as the
     JAX package's `create_train_state` reads them. A data- or
     tensor-parallel mesh (`tpu.data_axis` x `tpu.model_axis` > 1) is not
-    ported and is refused."""
+    ported and is refused, and so is the volumetric model (a 3-element
+    `data.grid_size`) until its training is ported."""
     _refuse_mesh(config)
+    if len(config.get("data", {}).get("grid_size", (0, 0))) == 3:
+        raise NotImplementedError("training the volumetric SmokePhysNet3D is not ported")
     cfg = copy.deepcopy(config)
     tpu = cfg.setdefault("tpu", {})
     tpu["compute_dtype"] = tpu.get("train_compute_dtype", "float32")

@@ -170,3 +170,54 @@ def test_bwd_wrapper_rejects_bad_inputs():
         attn.flash_attention_tokens_bwd(q, k, v, out, lse[:, :1], g, TH)
     with pytest.raises(TypeError, match="dtype"):
         attn.flash_attention_tokens_bwd(q, k, v, out.double(), lse, g, TH)
+
+
+# ---------------------------------------------------------------- head_dim 32
+
+HB, HL, HD32, HH = 1, 128, 128, 4  # 4 heads of 32, as the volumetric trunk's 8 of 32
+
+
+@pytest.mark.parametrize("jdtype,tdtype", [(jnp.float32, torch.float32),
+                                           (jnp.bfloat16, torch.bfloat16)],
+                         ids=["f32", "bf16"])
+def test_head_dim_32_matches_pallas(jdtype, tdtype):
+    """At head_dim 32 the plain versions of all three kernels against the
+    JAX package's Pallas kernels (interpret mode), with the head_dim-64
+    tests' bounds: the lean forward and the forward with logsumexp (float32
+    out atol 2e-5 and lse 1e-5; bf16 out two ulps and ||d||/||ref|| 2^-8,
+    lse 1e-4) and the gradients through the autograd Function (float32
+    atol 2e-5; bf16 ||d||/||ref|| 2^-7)."""
+    rng = np.random.default_rng(9)
+    q, k, v, g = (rng.standard_normal((HB, HL, HD32)).astype(np.float32) for _ in range(4))
+    jargs = [jnp.asarray(a, jdtype) for a in (q, k, v)]
+    scale = 1.0 / (np.sqrt(HD32 // HH) * TEMP)
+    jlean = jflash(*jargs, HH, temperature=TEMP)
+    jout, jlse = _flash_tokens_fwd_lse(*jargs, HH, scale, HL, HL)
+    jg = jnp.asarray(g, jdtype)
+    jgrads = jax.grad(
+        lambda q_, k_, v_: jnp.sum((jflash_trainable(q_, k_, v_, HH, TEMP) * jg)
+                                   .astype(jnp.float32)),
+        argnums=(0, 1, 2))(*jargs)
+    tq, tk, tv = (torch.from_numpy(a).to(tdtype) for a in (q, k, v))
+    lean = flash_attention_tokens(tq, tk, tv, HH, temperature=TEMP)
+    out, lse = attn.flash_attention_tokens_fwd_lse(tq, tk, tv, HH, TEMP)
+    assert lse.shape == (HB, HH, HL)
+    for got, want in ((lean, jlean), (out, jout)):
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        if tdtype == torch.float32:
+            np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+            np.testing.assert_allclose(got, want, atol=2 * ulp, rtol=0)
+            assert _rel(got, want) <= 2.0 ** -8
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse),
+                               atol=1e-5 if tdtype == torch.float32 else 1e-4, rtol=0)
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    attn.flash_attention_tokens_trainable(*ts, HH, TEMP).backward(
+        torch.from_numpy(g).to(tdtype))
+    for name, t, j in zip("qkv", ts, jgrads):
+        got, want = t.grad.float().numpy(), np.asarray(j, np.float32)
+        if tdtype == torch.float32:
+            np.testing.assert_allclose(got, want, atol=2e-5, rtol=0, err_msg=name)
+        else:
+            assert _rel(got, want) <= 2.0 ** -7, name

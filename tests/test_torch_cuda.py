@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from smokephysai_tpu_torch.ops import attention as attn_ops
+from smokephysai_tpu_torch.ops import cg3d as cg_ops
 from smokephysai_tpu_torch.ops import fused_step as step_ops
 from smokephysai_tpu_torch.ops import jacobi as jacobi_ops
 from smokephysai_tpu_torch.ops import stencil as stencil_ops
-from smokephysai_tpu_torch.physics import solver
+from smokephysai_tpu_torch.physics import solver, solver3d
 
 pytestmark = pytest.mark.cuda
 
@@ -97,8 +98,8 @@ def test_flash_kernel_matches_plain(cuda, dtype):
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.randn(1, 128, 256, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        attn_ops.flash_attention_tokens(q, q, q, 2)
+    with pytest.raises(ValueError, match="head_dim"):  # 256: no instantiation
+        attn_ops.flash_attention_tokens(q, q, q, 1)
     with pytest.raises(ValueError, match="multiple"):
         attn_ops.flash_attention_tokens(q[:, :100], q[:, :100], q[:, :100], 4)
     with pytest.raises(TypeError, match="not supported"):
@@ -271,3 +272,96 @@ def test_flash_training_gradient_reaches_q_proj(cuda):
     q = torch.randn(1, 64, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(RuntimeError, match="trainable"):
         attn_ops.flash_attention_tokens(q, q, q, 2)
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.parametrize("shape,iters", [((1, 32, 32, 32), 30), ((3, 16, 16, 16), 30),
+                                         ((1, 37, 53, 29), 30), ((2, 8, 9, 10), 0),
+                                         ((2, 8, 9, 10), 1), ((1, 1, 1, 1), 5)],
+                         ids=["32cubed", "batch3", "odd", "iters0", "iters1", "one_cell"])
+def test_cg_kernel_matches_plain(cuda, shape, iters):
+    """The CG kernel against its plain version from a warm p0:
+    ||d|| / ||ref|| <= 1e-5 (float32 sums in another order); two runs
+    bit-equal; each episode of a batch bit-equal to its solve alone; one
+    count per solve; the inputs unchanged."""
+    g = torch.Generator().manual_seed(sum(shape) + iters)
+    div = torch.randn(*shape, generator=g).to(cuda)
+    p0 = (0.1 * torch.randn(*shape, generator=g)).to(cuda)
+    before = (p0.clone(), div.clone())
+    n = cg_ops.LAUNCHES
+    out = cg_ops.cg_pressure(p0, div, iters)
+    assert cg_ops.LAUNCHES == n + 1
+    ref = cg_ops.cg_pressure_reference(p0, div, iters)
+    again = cg_ops.cg_pressure(p0, div, iters)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-5 or float((out - ref).abs().max()) == 0.0
+    assert torch.equal(out, again)
+    for e in range(shape[0]):
+        solo = cg_ops.cg_pressure(p0[e:e + 1].contiguous(), div[e:e + 1].contiguous(), iters)
+        assert torch.equal(out[e:e + 1], solo)
+    assert torch.equal(p0, before[0]) and torch.equal(div, before[1])
+
+
+def test_cg_kernel_guards_and_refusals(cuda):
+    """Zero divergence from p0 = 0 stays exactly 0 (both guards), and the
+    wrapper refuses what the kernel does not take."""
+    z = torch.zeros(2, 8, 8, 8, device=cuda)
+    assert torch.equal(cg_ops.cg_pressure(z, z, 30), z)
+    with pytest.raises(TypeError, match="float32"):
+        cg_ops.cg_pressure(z.double(), z.double(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cg_ops.cg_pressure(z.transpose(-1, -2), z, 3)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_step3d_kernel_matches_plain(cuda, use_pallas):
+    """A 32^3 step with the CG kernel against the plain step: fields within
+    atol 1e-5 (p within 1e-5 of its largest |p|); one kernel solve per
+    step under use_pallas, none without."""
+    g = torch.Generator().manual_seed(5)
+    s = solver3d.init_state3d((32, 32, 32), device=cuda, batch=(2,))
+    d = solver3d.add_smoke_source3d(s.density, 12.0, 16.0, 10.0, radius=8.0)
+    s = s.replace(density=d, u=(0.3 * torch.randn(s.u.shape, generator=g)).to(cuda))
+    n = cg_ops.LAUNCHES
+    out = solver3d.step3d(s, use_pallas=use_pallas)
+    assert cg_ops.LAUNCHES == n + int(use_pallas)
+    ref = solver3d.step3d(s, use_pallas=False)
+    for name in ("u", "v", "w", "density"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=1e-5,
+                                   rtol=1e-5, msg=name)
+    torch.testing.assert_close(out.p, ref.p, rtol=0, atol=1e-5 * float(ref.p.abs().max()))
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_kernels_other_head_dims(cuda, dtype, head_dim):
+    """The lean forward, the forward with logsumexp and the backward at head
+    dims 16, 32 and 128 against their plain versions, with the head_dim-64
+    tests' bounds: forwards float32 atol 1e-5 (bf16 two ulps and
+    ||d||/||ref|| 2^-8), lse 1e-4, backward ||d||/||ref|| 1e-5 (bf16
+    2^-10)."""
+    heads = 256 // head_dim
+    g = torch.Generator().manual_seed(head_dim)
+    q, k, v, go = (torch.randn(2, 512, 256, generator=g).to(cuda, dtype) for _ in range(4))
+    for out, ref in ((attn_ops.flash_attention_tokens(q, k, v, heads),
+                      attn_ops.flash_attention_tokens_reference(q, k, v, heads)),
+                     (attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)[0],
+                      attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)[0])):
+        out, ref = out.float(), ref.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        else:
+            torch.testing.assert_close(out, ref, atol=2 * _bf16_ulp(float(ref.abs().max())),
+                                       rtol=0)
+            assert _rel(out, ref) <= 2.0 ** -8
+    _, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    o, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    kg = attn_ops.flash_attention_tokens_bwd(q, k, v, o, rlse, go, heads)
+    pg = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, o, rlse, go, heads)
+    bound = 1e-5 if dtype == torch.float32 else 2.0 ** -10
+    for a, b in zip(kg, pg):
+        assert _rel(a.float(), b.float()) <= bound
