@@ -13,7 +13,12 @@ From the root of a checkout, with one CUDA card:
    of four, the multi-step again at the dataset's 64 in the timing phase; lean flash attention at B=4 in bf16 and float32 and at the
    serving slice's B=19; the training forward with logsumexp and the
    backward at the training shape [8, 1024, 512], bf16, and the backward
-   also in float32);
+   also in float32; there, in bf16 and float32, the split backward's dq
+   and dk/dv kernels against their plain versions and the fused kernel,
+   each call run twice and each episode of a batch of 2 alone, all
+   bit-equal; the head-major `flash_attention` driven once at
+   [8, 8, 1024, 64] bf16 with its launch count, and held against its plain
+   version there in bf16 and float32 and at the JAX tests' shapes);
 4. serving phase: the serving path of `config/config_serving.yaml` on
    `checkpoints/smokephysnet_128_best.npz` through the port's entry points:
    the 20-frame test sequence (20 fused-step launches) and one batched bf16
@@ -28,8 +33,10 @@ From the root of a checkout, with one CUDA card:
    the forward-with-logsumexp and backward kernels each per step, no lean
    forward), one step held against the same step with the attention's plain
    versions (loss, gradient norm and each q, k, v projection's gradient),
-   one eval pass, a checkpoint written and served again through
-   `train/serving.load_model`;
+   the same step under SMOKEPHYS_FUSED_BWD=0 (6 forward-with-lse, 6 dq and
+   6 dk/dv launches, no fused one) held against the plain backward, the
+   train step on both routes timed in turns, one eval pass, a checkpoint
+   written and served again through `train/serving.load_model`;
 7. timing phase: CUDA-event medians after warm-up; with --trace, also
    traces the serving forward, the simulator step and one train step with
    torch.profiler and prints where their device time goes;
@@ -57,7 +64,8 @@ From the root of a checkout, with one CUDA card:
    `checkpoints/smokephysnet3d_128cubed.npz` served on frame 6 -> 7 through
    `load_model` and `make_predictor` (no kernel: float32 einsum) against
    the same model in float64; the three flash kernels at head_dim 32
-   ([1,512,256] float32 and bf16, [8,512,256] bf16), the model with
+   ([1,512,256] float32 and bf16, [8,512,256] bf16; with them the split
+   backward pair), the model with
    `tpu.use_flash` (4 lean launches) and its input gradient (4 + 4
    launches of the training pair) against einsum; timings of the CG, the
    3D step, one episode, the forward and the head_dim-32 kernels, and the
@@ -68,6 +76,7 @@ From the root of a checkout, with one CUDA card:
 Any failure exits non-zero without that last line: there is no CPU
 fallback. Needs no network and no file outside the checkout.
 """
+import contextlib
 import importlib
 import json
 import math
@@ -133,6 +142,7 @@ TRAIN_BWD_PROJ_GRAD_REL_NORM = 2.0 ** -8
 TRAIN_NUM = 64  # cuts of config_train_fast.yaml: episodes and steps
 VAL_NUM = 8
 TRAIN_STEPS = 10
+ROUTE_STEPS = 5  # train steps timed on each backward route, in turns
 GEN_EPISODES = 8  # config_256_finetune.yaml's batch, generated at 256^2
 # the volumetric phase
 VOL_EPISODES = 2  # config_128cubed.yaml's 32 + 8 episodes cut to 2
@@ -280,6 +290,9 @@ COUNTERS = {  # kernel: (module under smokephysai_tpu_torch.ops, its counter)
     "flash_attention_tokens": ("attention", "LAUNCHES"),
     "flash_attention_tokens_fwd_lse": ("attention", "LSE_LAUNCHES"),
     "flash_attention_tokens_bwd": ("attention", "BWD_LAUNCHES"),
+    "flash_attention_tokens_bwd_dq": ("attention", "BWD_DQ_LAUNCHES"),
+    "flash_attention_tokens_bwd_dkv": ("attention", "BWD_DKV_LAUNCHES"),
+    "flash_attention": ("attention", "HM_LAUNCHES"),
     "jacobi_pressure": ("jacobi", "LAUNCHES"),
     "diffuse": ("stencil", "LAUNCHES"),
     "cg_pressure": ("cg3d", "LAUNCHES"),
@@ -307,6 +320,100 @@ def expect_counts(phase, counts, **want):
         if counts[name] != want.get(name, 0):
             fail(f"{phase}: expected {want.get(name, 0)} {name} launches, "
                  f"saw {counts[name]}")
+
+
+@contextlib.contextmanager
+def split_backward():
+    """SMOKEPHYS_FUSED_BWD=0 (the split dq and dk/dv kernels) inside a
+    `with` block; what was set before is restored after."""
+    saved = os.environ.get("SMOKEPHYS_FUSED_BWD")
+    os.environ["SMOKEPHYS_FUSED_BWD"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["SMOKEPHYS_FUSED_BWD"]
+        else:
+            os.environ["SMOKEPHYS_FUSED_BWD"] = saved
+
+
+def split_check(attn_ops, args, heads, tag, bound, fused):
+    """The split dq and dk/dv kernels, through `flash_attention_tokens_bwd`
+    under SMOKEPHYS_FUSED_BWD=0, on `args` (q, k, v, out, lse, dout)
+    against their plain versions (||d||/||ref|| within `bound` for each of
+    dq, dk, dv) and against the fused kernel's gradients `fused` (the gap
+    printed); each call run twice, and with a batch of 2 or more each
+    episode of the first two alone: all bit-equal. Returns the largest |d|
+    from the plain versions of each kernel."""
+    import torch
+
+    def pair(a):
+        with split_backward():
+            return attn_ops.flash_attention_tokens_bwd(*a, heads)
+
+    got, again = pair(args), pair(args)
+    refs = (attn_ops.flash_attention_tokens_bwd_dq_reference(*args, heads),
+            *attn_ops.flash_attention_tokens_bwd_dkv_reference(*args, heads))
+    solo_ok = True
+    if args[0].shape[0] >= 2:
+        two = [t[:2].contiguous() for t in args]
+        batched = pair(two)
+        for e in range(2):
+            solo = pair([t[e:e + 1].contiguous() for t in two])
+            solo_ok &= all(torch.equal(b[e:e + 1], s_) for b, s_ in zip(batched, solo))
+    torch.cuda.synchronize()
+    rels = [rel_norm(a, b) for a, b in zip(got, refs)]
+    gaps = [rel_norm(a, b) for a, b in zip(got, fused)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    say(f"kernel flash_attention_tokens_bwd_dq / _dkv (split) {tag}: ||d||/||ref|| dq "
+        f"{rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} (bound {bound:.3e}); vs the "
+        f"fused kernel dq {gaps[0]:.3e} dk {gaps[1]:.3e} dv {gaps[2]:.3e}; two runs "
+        f"bit-equal {same}; episodes of a batch of 2 = their calls alone "
+        f"{solo_ok if args[0].shape[0] >= 2 else 'n/a (batch 1)'}")
+    if not (max(rels) <= bound and same and solo_ok):
+        fail(f"the split backward kernels disagree with their plain versions or "
+             f"themselves at {tag}")
+    return {"flash_attention_tokens_bwd_dq": maxerr(got[0], refs[0]),
+            "flash_attention_tokens_bwd_dkv": max(maxerr(got[1], refs[1]),
+                                                  maxerr(got[2], refs[2]))}
+
+
+def head_major_check(attn_ops, dev, gen, batch, heads, hd):
+    """`flash_attention` on head-major [B, H, L, D]: driven once at the
+    model's attention in that layout ([batch, heads, 1024, hd] bf16) with
+    launch counts, then held against `flash_attention_reference` there in
+    bf16 and float32 and at tests/test_pallas.py's two shapes, with the
+    lean kernel's bounds. Returns (the driven call's counts, the largest
+    bf16 |d|)."""
+    import torch
+
+    cases = (((batch, heads, 1024, hd), 1.0), ((2, 4, 256, 64), 1.0),
+             ((1, 2, 128, 32), 1.5))
+    counts, bf16_err = None, 0.0
+    for shape, temperature in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(*shape, generator=gen).to(dev, dtype) for _ in range(3))
+            reset_counts()
+            out = attn_ops.flash_attention(q, k, v, temperature)
+            torch.cuda.synchronize()
+            counts = counts or read_counts()  # the first call's
+            ref = attn_ops.flash_attention_reference(q, k, v, temperature)
+            err, rel = maxerr(out, ref), rel_norm(out, ref)
+            if dtype == torch.bfloat16:
+                bound = FLASH_BF16_ULPS * bf16_ulp(float(ref.float().abs().max()))
+                ok = err <= bound and rel <= FLASH_BF16_REL_NORM
+                bf16_err = max(bf16_err, err)
+            else:
+                bound = FLASH_F32_ATOL
+                ok = err <= bound
+            say(f"kernel flash_attention {list(shape)} {str(dtype)[6:]} temperature "
+                f"{temperature}: max|d| {err:.3e} (bound {bound:.3e}), ||d||/||ref|| "
+                f"{rel:.3e}{f' (bound {FLASH_BF16_REL_NORM:.3e})' if dtype == torch.bfloat16 else ''}")
+            if not ok:
+                fail(f"flash_attention disagrees with its plain version at {list(shape)}")
+    say(f"head-major flash_attention {list(cases[0][0])} bf16, one call: launches {counts}")
+    expect_counts("head-major flash_attention", counts, flash_attention=1)
+    return counts, bf16_err
 
 
 class PlainFlash:
@@ -469,13 +576,14 @@ def training_phase(config, train_ds, val_ds, dev):
         fail("non-finite validation loss")
 
     # one step from the same weights, batch, chaos fields and dropout
-    # stream through the kernels, through the forward kernel and the plain
-    # backward, and through the plain versions of both
+    # stream through the kernels, through the kernels with the split
+    # backward, through the forward kernel and the plain backward, and
+    # through the plain versions of both
     batch = next(it)
     fields = model.chaos_fields(trainer.generator, bs, dev)
     state = copy.deepcopy(model.state_dict())
     runs = {}
-    for mode in ("kernels", "plain backward", "plain"):
+    for mode in ("kernels", "split kernels", "plain backward", "plain"):
         twin = loop.build_train_model(config, dev)
         twin.load_state_dict(state)
         tw = loop.Trainer(twin, config, steps_per_epoch, torch.Generator(dev).manual_seed(1))
@@ -483,6 +591,9 @@ def training_phase(config, train_ds, val_ds, dev):
         reset_counts()
         if mode == "kernels":
             m = tw.train_step(batch, chaos_fields=fields)
+        elif mode == "split kernels":
+            with split_backward():
+                m = tw.train_step(batch, chaos_fields=fields)
         else:
             with PlainFlash(attn_ops, ca_mod, forward=mode == "plain"):
                 m = tw.train_step(batch, chaos_fields=fields)
@@ -523,6 +634,55 @@ def training_phase(config, train_ds, val_ds, dev):
             and runs["plain backward"][2] == lse_only and pc == none):
         fail("the kernels' train step disagrees with the plain versions'")
 
+    # the split backward's step against the plain backward's
+    sl, sn, sc, sg = runs["split kernels"]
+    bl, bn, _, bg = runs["plain backward"]
+    loss_rel, norm_rel = abs(sl - bl) / abs(bl), abs(sn - bn) / abs(bn)
+    rel = {n: rel_norm(sg[n], bg[n]) for n in bg}
+    top = [x for n, x in rel.items() if n.startswith(f"layer_{layers - 1}.")]
+    say(f"train: one step, split backward kernels (SMOKEPHYS_FUSED_BWD=0) vs the plain "
+        f"backward: loss {sl:.6f} vs {bl:.6f} (rel {loss_rel:.3e}, bound "
+        f"{TRAIN_LOSS_RTOL:g}), gradient norm {sn:.5f} vs {bn:.5f} (rel {norm_rel:.3e}, "
+        f"bound {TRAIN_GRAD_NORM_RTOL:g}); q, k, v projection gradients ||d||/||ref|| "
+        f"largest {max(rel.values()):.3e} (bound {TRAIN_BWD_PROJ_GRAD_REL_NORM:.3e}), the "
+        f"last layer's {max(top):.3e} (bound {TRAIN_BWD_TOP_PROJ_GRAD_REL_NORM:.3e}); by "
+        f"layer, q k v: {[float(f'{x:.3e}') for x in rel.values()]}; launches {sc}")
+    split_counts = lse_only | {"flash_attention_tokens_bwd_dq": layers,
+                               "flash_attention_tokens_bwd_dkv": layers}
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_GRAD_NORM_RTOL
+            and len(rel) == 3 * layers and max(rel.values()) <= TRAIN_BWD_PROJ_GRAD_REL_NORM
+            and len(top) == 3 and max(top) <= TRAIN_BWD_TOP_PROJ_GRAD_REL_NORM
+            and sc == split_counts):
+        fail("the split backward's train step disagrees with the plain backward's")
+
+    # the train step on both backward routes, in turns
+    route_ms = {"fused": [], "split": []}
+    for i in range(2 * ROUTE_STEPS):
+        route = ("fused", "split")[i % 2]
+        step_batch = next(it)
+        reset_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with split_backward() if route == "split" else contextlib.nullcontext():
+            a.record()
+            metrics = trainer.train_step(step_batch)
+            b.record()
+            b.synchronize()
+        counts = read_counts()
+        if route == "split":
+            expect_counts("train step, split backward", counts, **split_counts)
+        else:
+            expect_counts("train step, fused backward", counts,
+                          flash_attention_tokens_fwd_lse=layers,
+                          flash_attention_tokens_bwd=layers)
+        if not math.isfinite(float(metrics["total_loss"])):
+            fail(f"non-finite training loss on the {route} backward route")
+        route_ms[route].append(a.elapsed_time(b))
+    route_med = {r: statistics.median(v) for r, v in route_ms.items()}
+    say(f"train: {ROUTE_STEPS} steps on each backward route, in turns: fused "
+        f"{[round(x, 2) for x in route_ms['fused']]} ms (median {route_med['fused']:.3f}), "
+        f"split {[round(x, 2) for x in route_ms['split']]} ms (median "
+        f"{route_med['split']:.3f}; CUDA events)")
+
     # checkpoint -> npz export -> served again
     serve_cfg = copy.deepcopy(config)
     serve_cfg["tpu"]["compute_dtype"] = serve_cfg["tpu"]["train_compute_dtype"]
@@ -546,7 +706,8 @@ def training_phase(config, train_ds, val_ds, dev):
     if not (same and finite):
         fail("the trained checkpoint does not serve back")
     del served, out
-    return trainer, it, {"step_ms": step_ms, "counts": total, "losses": losses}
+    return trainer, it, {"step_ms": step_ms, "counts": total, "losses": losses,
+                         "split_counts": sc, "route_ms": route_med}
 
 
 def vorticity_phase(dev, name, trace):
@@ -744,8 +905,9 @@ def vorticity_phase(dev, name, trace):
 
 
 def flash_check(attn_ops, q, k, v, g, heads, tag):
-    """The three flash kernels against their plain versions at one shape,
-    with the head_dim-64 checks' bounds; returns the largest |d| of each."""
+    """The three flash kernels and the split backward pair against their
+    plain versions at one shape, with the head_dim-64 checks' bounds;
+    returns the largest |d| of each."""
     import torch
 
     o = attn_ops.flash_attention_tokens(q, k, v, heads)
@@ -780,6 +942,7 @@ def flash_check(attn_ops, q, k, v, g, heads, tag):
         f"dk {rels[1]:.3e} dv {rels[2]:.3e} (bound {bwd_bound:.3e})")
     if not ok:
         fail(f"a flash kernel disagrees with its plain version at {tag}")
+    errs.update(split_check(attn_ops, (q, k, v, rl, rlse, g), heads, tag, bwd_bound, kg))
     return errs
 
 
@@ -1055,6 +1218,9 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    if os.environ.get("SMOKEPHYS_FUSED_BWD") == "0":
+        fail("SMOKEPHYS_FUSED_BWD=0 is set: unset it; this script drives the default "
+             "(fused) backward and sets the split one itself")
     import numpy as np
 
     from smokephysai_tpu_torch import inference
@@ -1209,7 +1375,7 @@ def main():
         f"{float(rlse.max()):.3f}]")
     if not (lse_out_err <= bound and rel <= FLASH_BF16_REL_NORM and lse_err <= LSE_ATOL):
         fail("flash_attention_tokens_fwd_lse disagrees with its plain version")
-    bwd_errs = {}
+    bwd_errs, split_errs = {}, {}
     for dtype, rel_bound in ((torch.bfloat16, BWD_BF16_REL_NORM),
                              (torch.float32, BWD_F32_REL_NORM)):
         qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, g))
@@ -1226,8 +1392,13 @@ def main():
             f"dv {rels[2]:.3e} (bound {rel_bound:.3e}), max|d| {bwd_errs[tag]:.3e}")
         if not max(rels) <= rel_bound:
             fail(f"flash_attention_tokens_bwd ({tag}) disagrees with its plain version")
+        split_errs[tag] = split_check(
+            attn_ops, (qd, kd, vd, od, lsed, gd), heads,
+            f"B={train_batch} L=1024 D={width} H={heads} {tag}", rel_bound, kg)
         del qd, kd, vd, gd, od, lsed, kg, pg
     del q, k, v, g, o, lse, ro, rlse
+    hm_counts, hm_err = head_major_check(attn_ops, dev, gen, train_batch, heads,
+                                         width // heads)
 
     # ---------------------------------------------------------------- slice
     if not os.path.exists(CHECKPOINT):
@@ -1414,11 +1585,52 @@ def main():
         f"on {name}: kernel {ms:.4f} ms (with the delta reduce, the dq buffer's "
         f"zeroing and its cast), plain {plain_ms:.4f} ms, SDPA backward (autograd) "
         f"{lib_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
-    del q, k, v, g, o, lse, qh, kh, vh, gh, oh
+    # the split pair: each kernel alone on one precomputed delta, and both
+    # as the split route runs them (with the delta reduce)
+    args = (q, k, v, o, lse, g, heads)
+    delta = attn_ops._delta(o, g, heads)
+    pair_flops = tb * heads * 1024 * 1024 * hd
+    io, lse_bytes = tb * 1024 * width * 2, tb * heads * 1024 * 4
+    for kname, fn, ref, products, outs in (
+            ("flash_attention_tokens_bwd_dq", attn_ops._launch_bwd_dq,
+             attn_ops.flash_attention_tokens_bwd_dq_reference, 3, 1),
+            ("flash_attention_tokens_bwd_dkv", attn_ops._launch_bwd_dkv,
+             attn_ops.flash_attention_tokens_bwd_dkv_reference, 4, 2)):
+        ms = timed(lambda: fn(q, k, v, g, lse, delta, heads, 1.0))
+        plain_ms = timed(lambda: ref(*args), runs=5)
+        # q, k, v, dO, lse and delta read once, the gradients written once
+        kb = lower_bound((4 + outs) * io + 2 * lse_bytes, 2 * products * pair_flops,
+                         BF16_FLOPS)
+        timings[kname] = (ms, plain_ms, *kb, lib_ms)
+        say(f"time {kname} B={tb} L=1024 D={width} H={heads} bf16 on {name}: kernel "
+            f"{ms:.4f} ms (delta given), plain {plain_ms:.4f} ms, SDPA backward "
+            f"(autograd, all three gradients) {lib_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]})")
+    with split_backward():
+        split_ms = timed(lambda: attn_ops.flash_attention_tokens_bwd(*args))
+    say(f"time flash_attention_tokens_bwd under SMOKEPHYS_FUSED_BWD=0 (delta, dq kernel, "
+        f"dk/dv kernel) B={tb} bf16 on {name}: {split_ms:.4f} ms, against the fused "
+        f"{timings['flash_attention_tokens_bwd'][0]:.4f} ms and SDPA's backward "
+        f"{lib_ms:.4f} ms")
+    del q, k, v, g, o, lse, qh, kh, vh, gh, oh, args, delta
+    # the head-major forward on SDPA's own layout
+    qh, kh, vh = (torch.randn(tb, heads, 1024, hd, generator=gen).to(dev, torch.bfloat16)
+                  for _ in range(3))
+    ms = timed(lambda: attn_ops.flash_attention(qh, kh, vh))
+    plain_ms = timed(lambda: attn_ops.flash_attention_reference(qh, kh, vh))
+    lib_ms = timed(lambda: sdpa(qh, kh, vh))
+    hb = lower_bound(4 * tb * heads * 1024 * hd * 2, 4 * tb * heads * 1024 * 1024 * hd,
+                     BF16_FLOPS)
+    timings["flash_attention"] = (ms, plain_ms, *hb, lib_ms)
+    say(f"time flash_attention [{tb},{heads},1024,{hd}] bf16 on {name}: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, SDPA (same head-major tensors) {lib_ms:.4f} ms, "
+        f"bound {hb[0]:.4f} ms ({hb[1]})")
+    del qh, kh, vh
     train_ms = statistics.median(train_info["step_ms"][1:])
     say(f"time train step B={tb} (config_train_fast: bf16, flash, fast_math, full "
         f"width) on {name}: {train_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}, "
-        f"CUDA events)")
+        f"CUDA events); in turns, fused backward {train_info['route_ms']['fused']:.3f} "
+        f"ms, split backward {train_info['route_ms']['split']:.3f} ms (medians of "
+        f"{ROUTE_STEPS} each)")
 
     if trace:
         profile(lambda: predict(frames), TRACE_RUNS, f"serving forward B={serve_batch}")
@@ -1486,6 +1698,30 @@ def main():
             "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
             "library_ms": t_[4],
             "shape": f"[{tb},1024,{width}] bf16, {heads} heads of 64",
+        })
+    for kname, line, launches_, err in (
+            ("flash_attention_tokens_bwd_dq", 436,
+             train_info["split_counts"]["flash_attention_tokens_bwd_dq"],
+             split_errs["bfloat16"]["flash_attention_tokens_bwd_dq"]),
+            ("flash_attention_tokens_bwd_dkv", 449,
+             train_info["split_counts"]["flash_attention_tokens_bwd_dkv"],
+             split_errs["bfloat16"]["flash_attention_tokens_bwd_dkv"]),
+            ("flash_attention", 82, hm_counts["flash_attention"], hm_err)):
+        t_ = timings[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "smokephysai_tpu_torch/csrc/" + (
+                "flash_tokens.cu" if kname == "flash_attention" else "flash_bwd.cu"),
+            "replaces": f"smokephysai_tpu/ops/pallas/attention.py:{line}",
+            "launches": launches_,
+            "max_abs_err": err,
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": t_[4],
+            "shape": (f"[{tb},{heads},1024,{hd}] bf16 head-major, one call (no model "
+                      f"path calls it)" if kname == "flash_attention" else
+                      f"[{tb},1024,{width}] bf16, {heads} heads of {hd}, per train step "
+                      f"under SMOKEPHYS_FUSED_BWD=0"),
         })
     vgrid = "256x256"
     for kname, source, line, key, err, shape in (

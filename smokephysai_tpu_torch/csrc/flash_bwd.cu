@@ -43,9 +43,34 @@
 // 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 8 * 16 * L4 * 4 + 2 * 64 * 72 * 2 +
 // 64 * L4 * 4 bytes with L4 = max(64, hd) + 4 (106 KB at 64, 186 KB at 128);
 // float32: (4 * 64 * (hd + 1) + 64 * 65) * 4 (81 KB at 64, 145 KB at 128).
+//
+// The split pair (the JAX package's SMOKEPHYS_FUSED_BWD=0 route:
+// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel, both on token-major
+// [B, L, D] with the heads looped inside, grid (batch, q-block)) is two
+// kernels with no atomics, so its gradients are the same bits on every run
+// and each batch element's are those of a call on it alone:
+// - dq: one block per (64-query tile, head, batch). Each warp keeps its 16
+//   query rows of Q and dO as WMMA A fragments, loops over all 64-key
+//   tiles, recomputes S = Q K^T and dP = dO V^T, forms dS (to q's type) and
+//   accumulates dQ += dS K in float32 fragments; it writes dq once, in q's
+//   type. Three products: 6*B*H*L^2*hd = 25.8 GFLOP at the training shape,
+//   0.026 ms at 989 TFLOP/s (on ~42 MB, 0.013 ms at 3.35 TB/s).
+// - dkv: the fused kernel above with its dQ step compiled out (template
+//   flag DQ = false; the fused instantiation, DQ = true, is the code it
+//   was). Four products: 8*B*H*L^2*hd = 34.4 GFLOP, 0.035 ms (~50 MB).
+// Both are bound by operations, and both recompute S and dP: seven
+// products against the fused kernel's five. What limits them as written is
+// what limits the fused kernel: WMMA (mma.sync) rather than wgmma, S and
+// dP staged through shared memory for the elementwise step, and 4 warps
+// per block. Shared memory of the dq kernel per block, bf16:
+// 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 8 * 16 * L4 * 4 + 64 * 72 * 2 bytes
+// (81 KB at 64, 147 KB at 128); float32: 4 * 64 * (hd + 1) * 4 (67 KB at
+// 64, 132 KB at 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -74,6 +99,13 @@ struct Geo {
   static constexpr int P32 = HD + 1;
   static constexpr int PDS = BT + 1;
   static constexpr size_t SMEM_F32 = (4 * BT * P32 + BT * PDS) * sizeof(float);
+  // the dkv kernels leave out their last region: dQ staging, float32 dS
+  static constexpr size_t SMEM_DKV_BF16 = SMEM_BF16 - DQ_BYTES;
+  static constexpr size_t SMEM_DKV_F32 = SMEM_F32 - BT * PDS * sizeof(float);
+  // dq kernel: sQ sdO sK sV | lse delta | S dP per warp | dS
+  static constexpr size_t SMEM_DQ_BF16 =
+      4 * TILE_BYTES + 2 * VEC_BYTES + 2 * WARPS * WS_BYTES + PT_BYTES;
+  static constexpr size_t SMEM_DQ_F32 = 4 * BT * P32 * sizeof(float);
 };
 
 template <int HD>
@@ -88,7 +120,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int HD>
+// DQ = false: the dkv kernel (no dQ step, dq unused)
+template <int HD, bool DQ>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -206,27 +239,29 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         wmma::mma_sync(fdk[nt], fa, fb, fdk[nt]);
       }
     }
-    __syncthreads();  // dS^T of all four warps is in shared memory
+    if constexpr (DQ) {
+      __syncthreads();  // dS^T of all four warps is in shared memory
 
-    // dQ rows w*16.. of this query tile = dS (16 x 64 keys) K (64 x HD),
-    // with dS read as the transpose of dS^T
+      // dQ rows w*16.. of this query tile = dS (16 x 64 keys) K (64 x HD),
+      // with dS read as the transpose of dS^T
 #pragma unroll
-    for (int nt = 0; nt < HD / 16; ++nt) {
-      wmma::fill_fragment(fc, 0.0f);
+      for (int nt = 0; nt < HD / 16; ++nt) {
+        wmma::fill_fragment(fc, 0.0f);
 #pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        wmma::load_matrix_sync(fat, sdSt + kk * 16 * LDP + warp * 16, LDP);
-        wmma::load_matrix_sync(fb, sK + kk * 16 * LDT + nt * 16, LDT);
-        wmma::mma_sync(fc, fat, fb, fc);
+        for (int kk = 0; kk < BT / 16; ++kk) {
+          wmma::load_matrix_sync(fat, sdSt + kk * 16 * LDP + warp * 16, LDP);
+          wmma::load_matrix_sync(fb, sK + kk * 16 * LDT + nt * 16, LDT);
+          wmma::mma_sync(fc, fat, fb, fc);
+        }
+        wmma::store_matrix_sync(sDQ + warp * 16 * LDS + nt * 16, fc, LDS,
+                                wmma::mem_row_major);
       }
-      wmma::store_matrix_sync(sDQ + warp * 16 * LDS + nt * 16, fc, LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    float* dq_rows = dq + base + (size_t)(q0 + warp * 16) * D;
-    for (int i = lane; i < 16 * HD; i += 32) {
-      const int rr = i / HD, cc = i % HD;
-      atomicAdd(dq_rows + (size_t)rr * D + cc, sDQ[(warp * 16 + rr) * LDS + cc]);
+      __syncwarp();
+      float* dq_rows = dq + base + (size_t)(q0 + warp * 16) * D;
+      for (int i = lane; i < 16 * HD; i += 32) {
+        const int rr = i / HD, cc = i % HD;
+        atomicAdd(dq_rows + (size_t)rr * D + cc, sDQ[(warp * 16 + rr) * LDS + cc]);
+      }
     }
   }
 
@@ -254,8 +289,9 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// float32: one thread per key of the block's 64-key tile
-template <int HD>
+// float32: one thread per key of the block's 64-key tile (DQ = false: the
+// dkv kernel)
+template <int HD, bool DQ>
 __global__ void __launch_bounds__(BT)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -308,14 +344,16 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         gv[c] += pr * sdO[i * P32 + c];
         gk[c] += ds * sQ[i * P32 + c];
       }
-      sDS[i * PDS + t] = ds;
+      if constexpr (DQ) sDS[i * PDS + t] = ds;
     }
-    __syncthreads();
-    // thread t as query row t: its share of dQ from this key tile
-    for (int c = 0; c < HD; ++c) {
-      float acc = 0.0f;
-      for (int j = 0; j < BT; ++j) acc += sDS[t * PDS + j] * sK[j * P32 + c];
-      atomicAdd(dq + base + (size_t)(q0 + t) * D + c, acc);
+    if constexpr (DQ) {
+      __syncthreads();
+      // thread t as query row t: its share of dQ from this key tile
+      for (int c = 0; c < HD; ++c) {
+        float acc = 0.0f;
+        for (int j = 0; j < BT; ++j) acc += sDS[t * PDS + j] * sK[j * P32 + c];
+        atomicAdd(dq + base + (size_t)(q0 + t) * D + c, acc);
+      }
     }
   }
 #pragma unroll
@@ -325,30 +363,221 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// dq: one block per (64-query tile, head, batch); each warp owns 16 query
+// rows and keeps their Q and dO as A fragments and their dQ in float32
+// accumulator fragments across all key tiles
 template <int HD>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int L, int D,
+                         float scale) {
+  using G = Geo<HD>;
+  constexpr int LDT = G::LDT, LDS = G::LDS;
+  constexpr size_t TILE_BYTES = G::TILE_BYTES, WS_BYTES = G::WS_BYTES;
+  constexpr int HALF = HD / 2;  // dQ columns per lane
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* p = smem;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
+  __nv_bfloat16* sdO = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
+  float* sLse = reinterpret_cast<float*>(p); p += VEC_BYTES;
+  float* sDelta = reinterpret_cast<float*>(p); p += VEC_BYTES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* sS = reinterpret_cast<float*>(p + warp * WS_BYTES);
+  float* sDP = reinterpret_cast<float*>(p + (WARPS + warp) * WS_BYTES);
+  p += 2 * WARPS * WS_BYTES;
+  __nv_bfloat16* sdS = reinterpret_cast<__nv_bfloat16*>(p) + warp * 16 * LDP;
+
+  const int H = gridDim.y;
+  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
+  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
+  const int q0 = blockIdx.x * BT;
+  load_tile<HD>(sQ, q + base + (size_t)q0 * D, D);
+  load_tile<HD>(sdO, dout + base + (size_t)q0 * D, D);
+  for (int i = threadIdx.x; i < BT; i += blockDim.x) {
+    sLse[i] = lse[row_base + q0 + i];
+    sDelta[i] = delta[row_base + q0 + i];
+  }
+
+  // the warp's 16 queries: rows w*16.. of the Q and dO tiles
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq[HD / 16], fdo[HD / 16];
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fbt;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc, fdq[HD / 16];
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wmma::load_matrix_sync(fq[kk], sQ + warp * 16 * LDT + kk * 16, LDT);
+    wmma::load_matrix_sync(fdo[kk], sdO + warp * 16 * LDT + kk * 16, LDT);
+    wmma::fill_fragment(fdq[kk], 0.0f);
+  }
+
+  // lane owns query row r of the warp's 16 and key columns [half*32, +32)
+  const int r = lane >> 1, half = lane & 1;
+  const float lse_r = sLse[warp * 16 + r], delta_r = sDelta[warp * 16 + r];
+  for (int k0 = 0; k0 < L; k0 += BT) {
+    __syncthreads();  // every warp is done with the previous key tile
+    load_tile<HD>(sK, k + base + (size_t)k0 * D, D);
+    load_tile<HD>(sV, v + base + (size_t)k0 * D, D);
+    __syncthreads();
+
+    // S = Q_w K^T and dP = dO_w V^T (16 queries x 64 keys)
+#pragma unroll
+    for (int nt = 0; nt < BT / 16; ++nt) {
+      wmma::fill_fragment(fc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wmma::load_matrix_sync(fbt, sK + nt * 16 * LDT + kk * 16, LDT);
+        wmma::mma_sync(fc, fq[kk], fbt, fc);
+      }
+      wmma::store_matrix_sync(sS + nt * 16, fc, LDS, wmma::mem_row_major);
+      wmma::fill_fragment(fc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wmma::load_matrix_sync(fbt, sV + nt * 16 * LDT + kk * 16, LDT);
+        wmma::mma_sync(fc, fdo[kk], fbt, fc);
+      }
+      wmma::store_matrix_sync(sDP + nt * 16, fc, LDS, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // P = exp(S * scale - lse), dS = P (dP - delta) scale, to bf16
+    {
+      const float* srow = sS + r * LDS + half * 32;
+      const float* dprow = sDP + r * LDS + half * 32;
+      __nv_bfloat16* dsrow = sdS + r * LDP + half * 32;
+#pragma unroll
+      for (int c = 0; c < 32; c += 2) {
+        float p0 = expf(srow[c] * scale - lse_r);
+        float p1 = expf(srow[c + 1] * scale - lse_r);
+        float ds0 = p0 * (dprow[c] - delta_r) * scale;
+        float ds1 = p1 * (dprow[c + 1] - delta_r) * scale;
+        *reinterpret_cast<__nv_bfloat162*>(dsrow + c) = __floats2bfloat162_rn(ds0, ds1);
+      }
+    }
+    __syncwarp();
+
+    // dQ_w += dS_w K (16 queries x HD dims)
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      wmma::load_matrix_sync(fa, sdS + kk * 16, LDP);
+#pragma unroll
+      for (int nt = 0; nt < HD / 16; ++nt) {
+        wmma::load_matrix_sync(fb, sK + kk * 16 * LDT + nt * 16, LDT);
+        wmma::mma_sync(fdq[nt], fa, fb, fdq[nt]);
+      }
+    }
+  }
+
+  // dQ of the warp's 16 queries, through its f32 tile, cast to bf16
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < HD / 16; ++nt)
+    wmma::store_matrix_sync(sS + nt * 16, fdq[nt], LDS, wmma::mem_row_major);
+  __syncwarp();
+  __nv_bfloat16* dst = dq + base + (size_t)(q0 + warp * 16 + r) * D + half * HALF;
+  const float* src = sS + r * LDS + half * HALF;
+#pragma unroll
+  for (int c = 0; c < HALF; c += 8) {
+    uint4 packed;
+    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      p2[t] = __floats2bfloat162_rn(src[c + 2 * t], src[c + 2 * t + 1]);
+    *reinterpret_cast<uint4*>(dst + c) = packed;
+  }
+}
+
+// float32 dq: one thread per query of the block's 64-query tile
+template <int HD>
+__global__ void __launch_bounds__(BT)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int L, int D, float scale) {
+  constexpr int P32 = Geo<HD>::P32;  // row pitch, one bank apart
+  extern __shared__ __align__(16) float smem32[];
+  float* sQ = smem32;
+  float* sdO = sQ + BT * P32;
+  float* sK = sdO + BT * P32;
+  float* sV = sK + BT * P32;
+  const int H = gridDim.y;
+  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
+  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
+  const int q0 = blockIdx.x * BT;
+  const int t = threadIdx.x;
+  for (int i = t; i < BT * HD; i += BT) {
+    int j = i / HD, c = i % HD;
+    sQ[j * P32 + c] = q[base + (size_t)(q0 + j) * D + c];
+    sdO[j * P32 + c] = dout[base + (size_t)(q0 + j) * D + c];
+  }
+  const float lse_t = lse[row_base + q0 + t], delta_t = delta[row_base + q0 + t];
+  float gq[HD];
+#pragma unroll
+  for (int c = 0; c < HD; ++c) gq[c] = 0.0f;
+
+  for (int k0 = 0; k0 < L; k0 += BT) {
+    __syncthreads();
+    for (int i = t; i < BT * HD; i += BT) {
+      int j = i / HD, c = i % HD;
+      sK[j * P32 + c] = k[base + (size_t)(k0 + j) * D + c];
+      sV[j * P32 + c] = v[base + (size_t)(k0 + j) * D + c];
+    }
+    __syncthreads();
+    for (int j = 0; j < BT; ++j) {
+      float s = 0.0f, dp = 0.0f;
+#pragma unroll
+      for (int c = 0; c < HD; ++c) {
+        s += sQ[t * P32 + c] * sK[j * P32 + c];
+        dp += sdO[t * P32 + c] * sV[j * P32 + c];
+      }
+      const float pr = expf(s * scale - lse_t);
+      const float ds = pr * (dp - delta_t) * scale;
+#pragma unroll
+      for (int c = 0; c < HD; ++c) gq[c] += ds * sK[j * P32 + c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < HD; ++c) dq[base + (size_t)(q0 + t) * D + c] = gq[c];
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// the fused kernel (DQ) or the dkv kernel (!DQ; dq unused)
+template <int HD, bool DQ>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int B, int L, int D, int heads, float scale, int dtype,
            cudaStream_t st) {
   dim3 grid(L / BT, heads, B);
   if (dtype == 0) {
-    constexpr size_t smem = Geo<HD>::SMEM_BF16;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    constexpr size_t smem = DQ ? Geo<HD>::SMEM_BF16 : Geo<HD>::SMEM_DKV_BF16;
+    cudaError_t err = allow_smem(flash_bwd_bf16_kernel<HD, DQ>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_bf16_kernel<HD><<<grid, WARPS * 32, smem, st>>>(
+    flash_bwd_bf16_kernel<HD, DQ><<<grid, WARPS * 32, smem, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
         (const float*)lse, (const float*)delta, (float*)dq,
         (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, L, D, scale);
   } else if (dtype == 1) {
-    constexpr size_t smem = Geo<HD>::SMEM_F32;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    constexpr size_t smem = DQ ? Geo<HD>::SMEM_F32 : Geo<HD>::SMEM_DKV_F32;
+    cudaError_t err = allow_smem(flash_bwd_f32_kernel<HD, DQ>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_f32_kernel<HD><<<grid, BT, smem, st>>>(
+    flash_bwd_f32_kernel<HD, DQ><<<grid, BT, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq, (float*)dk, (float*)dv, L, D, scale);
@@ -358,27 +587,91 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int B, int L,
+              int D, int heads, float scale, int dtype, cudaStream_t st) {
+  dim3 grid(L / BT, heads, B);
+  if (dtype == 0) {
+    constexpr size_t smem = Geo<HD>::SMEM_DQ_BF16;
+    cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<HD>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_bf16_kernel<HD><<<grid, WARPS * 32, smem, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+        (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, L, D,
+        scale);
+  } else if (dtype == 1) {
+    constexpr size_t smem = Geo<HD>::SMEM_DQ_F32;
+    cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<HD>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_f32_kernel<HD><<<grid, BT, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dq, L, D, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// checks the shape and calls f with the head dim as a compile-time constant
+template <typename F>
+int by_head_dim(int B, int L, int D, int heads, F&& f) {
+  if (B <= 0 || L <= 0 || L % BT != 0 || heads <= 0 || D % heads != 0 ||
+      B > 65535 || heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (D / heads) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32. q, k, v, dout [B, L, D] contiguous,
-// 16-byte aligned, in `dtype`; lse, delta [B, heads, L] float32; dq a
-// zeroed float32 [B, L, D] buffer the kernel adds into; dk, dv [B, L, D] in
-// `dtype`. Needs head_dim D / heads in {16, 32, 64, 128} and L a multiple
-// of 64.
+// 16-byte aligned, in `dtype`; lse, delta [B, heads, L] float32. Each needs
+// head_dim D / heads in {16, 32, 64, 128} and L a multiple of 64.
+//
+// The fused backward: dq a zeroed float32 [B, L, D] buffer the kernel adds
+// into; dk, dv [B, L, D] in `dtype`.
 extern "C" int flash_tokens_bwd(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, void* dk,
                                 void* dv, int B, int L, int D, int heads,
                                 float scale, int dtype, void* stream) {
-  if (B <= 0 || L <= 0 || L % BT != 0 || heads <= 0 || D % heads != 0 ||
-      B > 65535 || heads > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D / heads) {
-    case 16: return launch<16>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
-    case 32: return launch<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
-    case 64: return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
-    case 128: return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, L, D, heads, scale, dtype, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_head_dim(B, L, D, heads, [&](auto hd) {
+    return launch<decltype(hd)::value, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, L,
+                                             D, heads, scale, (int)dtype,
+                                             (cudaStream_t)stream);
+  });
+}
+
+// The split pair. dq [B, L, D] in `dtype`, written once.
+extern "C" int flash_tokens_bwd_dq(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dq, int B, int L, int D, int heads,
+                                   float scale, int dtype, void* stream) {
+  return by_head_dim(B, L, D, heads, [&](auto hd) {
+    return launch_dq<decltype(hd)::value>(q, k, v, dout, lse, delta, dq, B, L, D, heads,
+                                          scale, dtype, (cudaStream_t)stream);
+  });
+}
+
+// dk, dv [B, L, D] in `dtype`, written once.
+extern "C" int flash_tokens_bwd_dkv(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, int B, int L, int D,
+                                    int heads, float scale, int dtype,
+                                    void* stream) {
+  return by_head_dim(B, L, D, heads, [&](auto hd) {
+    return launch<decltype(hd)::value, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
+                                              B, L, D, heads, scale, dtype,
+                                              (cudaStream_t)stream);
+  });
 }

@@ -10,9 +10,13 @@ probabilities are cast to v's type before P.V, which accumulates in float32.
 - `flash_attention_tokens_fwd_lse`: the training forward, which also
   returns the per-head logsumexp [B, H, L] float32.
 - `flash_attention_tokens_bwd`: dq, dk, dv from the forward's output and
-  logsumexp (the JAX package's fused `_flash_trainable_bwd`).
+  logsumexp (the JAX package's `_flash_trainable_bwd`): the fused kernel,
+  or with `SMOKEPHYS_FUSED_BWD=0` the split dq and dk/dv kernels, as in
+  the JAX package.
 - `flash_attention_tokens_trainable`: the autograd Function over the pair,
   which takes the lean forward when no input needs a gradient.
+- `flash_attention`: the head-major [B, H, L, D] forward (the JAX
+  package's `flash_attention`), through the lean kernel with one head.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors only.
@@ -20,6 +24,7 @@ version for CPU tensors only.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import torch
@@ -38,7 +43,18 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # kernel launches since the last reset (read by chip_smoke.py)
 LAUNCHES = 0  # lean forward
 LSE_LAUNCHES = 0  # forward with logsumexp
-BWD_LAUNCHES = 0  # backward
+BWD_LAUNCHES = 0  # fused backward
+BWD_DQ_LAUNCHES = 0  # split backward: dq
+BWD_DKV_LAUNCHES = 0  # split backward: dk, dv
+HM_LAUNCHES = 0  # head-major forward
+
+
+def _fused_bwd_enabled() -> bool:
+    """The fused backward kernel (default), read on every backward call as
+    the JAX package reads it; `SMOKEPHYS_FUSED_BWD=0` selects the split dq
+    and dk/dv kernels (A/B timing, and gradients that are the same bits on
+    every run)."""
+    return os.environ.get("SMOKEPHYS_FUSED_BWD", "1") != "0"
 
 
 def _scale(head_dim: int, temperature: float) -> float:
@@ -86,6 +102,26 @@ def flash_attention_tokens_reference(
     return flash_attention_tokens_fwd_lse_reference(q, k, v, num_heads, temperature)[0]
 
 
+def _bwd_plain(q, k, v, out, lse, dout, num_heads, temperature, dq, dkv):
+    """The plain backward's arithmetic: (dq,) if `dq`, then (dk, dv) if
+    `dkv`."""
+    hd = q.shape[-1] // num_heads
+    scale = _scale(hd, temperature)
+    qh, kh, vh, doh = (_split(t, num_heads) for t in (q, k, v, dout))
+    delta = (doh * _split(out, num_heads)).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.einsum("bhid,bhjd->bhij", qh, kh) * scale - lse[..., None])
+    dp = torch.einsum("bhid,bhjd->bhij", doh, vh)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    grads = ()
+    if dq:
+        grads += (_merge(torch.einsum("bhij,bhjd->bhid", ds, kh), q.dtype),)
+    if dkv:
+        dk = torch.einsum("bhij,bhid->bhjd", ds, qh)
+        dv = torch.einsum("bhij,bhid->bhjd", p.to(v.dtype).float(), doh)
+        grads += (_merge(dk, k.dtype), _merge(dv, v.dtype))
+    return grads
+
+
 def flash_attention_tokens_bwd_reference(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
     num_heads: int, temperature: float = 1.0,
@@ -94,17 +130,36 @@ def flash_attention_tokens_bwd_reference(
     P = exp(S - lse), dS = P (dP - delta) scale with delta = rowsum(dO O)
     per head; P cast to v's type before P^T dO, dS to q's type before dS k
     and dS^T q; dq, dk, dv returned in q's, k's and v's types."""
-    hd = q.shape[-1] // num_heads
-    scale = _scale(hd, temperature)
-    qh, kh, vh, doh = (_split(t, num_heads) for t in (q, k, v, dout))
-    delta = (doh * _split(out, num_heads)).sum(dim=-1, keepdim=True)
-    p = torch.exp(torch.einsum("bhid,bhjd->bhij", qh, kh) * scale - lse[..., None])
-    dp = torch.einsum("bhid,bhjd->bhij", doh, vh)
-    ds = (p * (dp - delta) * scale).to(q.dtype).float()
-    dq = torch.einsum("bhij,bhjd->bhid", ds, kh)
-    dk = torch.einsum("bhij,bhid->bhjd", ds, qh)
-    dv = torch.einsum("bhij,bhid->bhjd", p.to(v.dtype).float(), doh)
-    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
+    return _bwd_plain(q, k, v, out, lse, dout, num_heads, temperature, True, True)
+
+
+def flash_attention_tokens_bwd_dq_reference(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
+    num_heads: int, temperature: float = 1.0,
+) -> Tensor:
+    """Plain version of the split dq kernel: the dq of
+    `flash_attention_tokens_bwd_reference` (the split and fused TPU
+    kernels round in the same places)."""
+    return _bwd_plain(q, k, v, out, lse, dout, num_heads, temperature, True, False)[0]
+
+
+def flash_attention_tokens_bwd_dkv_reference(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
+    num_heads: int, temperature: float = 1.0,
+) -> Tuple[Tensor, Tensor]:
+    """Plain version of the split dk/dv kernel: the (dk, dv) of
+    `flash_attention_tokens_bwd_reference`."""
+    return _bwd_plain(q, k, v, out, lse, dout, num_heads, temperature, False, True)
+
+
+def flash_attention_reference(
+    q: Tensor, k: Tensor, v: Tensor, temperature: float = 1.0,
+) -> Tensor:
+    """Plain version of the head-major forward on [B, H, L, D]:
+    `flash_attention_tokens_reference` with one head on [B*H, L, D]."""
+    B, H, L, D = q.shape
+    flat = (t.reshape(B * H, L, D) for t in (q, k, v))
+    return flash_attention_tokens_reference(*flat, 1, temperature).view(B, H, L, D)
 
 
 # ---------------------------------------------------------------- the kernels
@@ -118,15 +173,18 @@ def _lib():
 
 
 def _bwd_lib():
+    tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return _build.load(BWD_SOURCE, FLAGS, {
-        "flash_tokens_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "flash_tokens_bwd": [ctypes.c_void_p] * 9 + tail,
+        "flash_tokens_bwd_dq": [ctypes.c_void_p] * 7 + tail,
+        "flash_tokens_bwd_dkv": [ctypes.c_void_p] * 8 + tail,
     })
 
 
-def _check_qkv(name: str, q: Tensor, k: Tensor, v: Tensor, num_heads: int):
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"{name}: q, k, v must share one [B, L, D] shape, "
+def _check_qkv(name: str, q: Tensor, k: Tensor, v: Tensor, num_heads: int,
+               layout: str = "[B, L, D]", rank: int = 3):
+    if q.dim() != rank or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{name}: q, k, v must share one {layout} shape, "
                          f"got {q.shape}, {k.shape}, {v.shape}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{name}: q, k, v must share a dtype")
@@ -138,21 +196,22 @@ def _check_qkv(name: str, q: Tensor, k: Tensor, v: Tensor, num_heads: int):
 
 
 def _check_launch(name: str, num_heads: int, *tensors: Tensor):
-    """What the kernels take: CUDA, bf16 or float32, head_dim D / heads in
-    `HEAD_DIMS`, L a multiple of 64, contiguous and 16-byte aligned."""
+    """What the kernels take: bf16 or float32, head_dim D / heads in
+    `HEAD_DIMS`, L a multiple of 64 (q is [..., L, D]), CUDA, contiguous and
+    16-byte aligned."""
     q = tensors[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         f"(bfloat16 or float32)")
-    B, L, D = q.shape
+    L, D = q.shape[-2:]
     hd = D // num_heads
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd}; the kernels take head dims "
                          f"{', '.join(map(str, HEAD_DIMS))}")
     if L % BLOCK:
         raise ValueError(f"{name}: L={L} is not a multiple of {BLOCK}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
@@ -218,44 +277,81 @@ def flash_attention_tokens_fwd_lse(
     return out, lse
 
 
+def _check_bwd(name, q, k, v, out, lse, dout, num_heads):
+    _check_qkv(name, q, k, v, num_heads)
+    B, L, D = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: out and dout must have q's shape")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"{name}: out and dout must have q's dtype")
+    if lse.shape != (B, num_heads, L) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be float32 [{B}, {num_heads}, {L}]")
+    if q.device.type != "cpu":
+        _check_launch(name, num_heads, q, k, v, out, dout, lse)
+
+
+def _delta(out: Tensor, dout: Tensor, num_heads: int) -> Tensor:
+    """rowsum(dO O) per head, [B, H, L] float32 (one PyTorch reduce, as it
+    is one XLA reduce in JAX)."""
+    B, L, D = out.shape
+    return (dout.float() * out.float()).view(B, L, num_heads, D // num_heads) \
+        .sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _launch_bwd(kernel, outs, q, k, v, dout, lse, delta, num_heads, temperature):
+    """Launches `kernel` of csrc/flash_bwd.cu, which writes `outs`."""
+    B, L, D = q.shape
+    rc = getattr(_bwd_lib(), kernel)(
+        *(t.data_ptr() for t in (q, k, v, dout, lse, delta, *outs)), B, L, D,
+        num_heads, _scale(D // num_heads, temperature), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash attention backward kernel {kernel} launch "
+                           f"failed: cudaError {rc}")
+
+
+def _launch_bwd_dq(q, k, v, dout, lse, delta, num_heads, temperature) -> Tensor:
+    global BWD_DQ_LAUNCHES
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_tokens_bwd_dq", (dq,), q, k, v, dout, lse, delta, num_heads,
+                temperature)
+    BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, num_heads, temperature):
+    global BWD_DKV_LAUNCHES
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_tokens_bwd_dkv", (dk, dv), q, k, v, dout, lse, delta, num_heads,
+                temperature)
+    BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
 def flash_attention_tokens_bwd(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
     num_heads: int, temperature: float = 1.0,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(dq, dk, dv) of `flash_attention_tokens_fwd_lse`. CUDA tensors launch
-    the backward kernel after one PyTorch reduce for delta = rowsum(dO O)
-    per head (dq is summed in float32 by the kernel and cast to q's type);
-    CPU tensors take `flash_attention_tokens_bwd_reference`."""
+    """(dq, dk, dv) of `flash_attention_tokens_fwd_lse`. CUDA tensors take
+    one PyTorch reduce for delta = rowsum(dO O) per head, then the fused
+    backward kernel (dq summed in float32 by the kernel and cast to q's
+    type), or with `SMOKEPHYS_FUSED_BWD=0` the split dq kernel and then the
+    dk/dv kernel; CPU tensors take `flash_attention_tokens_bwd_reference`
+    on both routes (the split kernels' plain versions give the same bits)."""
     global BWD_LAUNCHES
-    _check_qkv("flash_attention_tokens_bwd", q, k, v, num_heads)
-    B, L, D = q.shape
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError("flash_attention_tokens_bwd: out and dout must have "
-                         "q's shape")
-    if out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise TypeError("flash_attention_tokens_bwd: out and dout must have "
-                        "q's dtype")
-    if lse.shape != (B, num_heads, L) or lse.dtype != torch.float32:
-        raise ValueError("flash_attention_tokens_bwd: lse must be float32 "
-                         f"[{B}, {num_heads}, {L}]")
+    _check_bwd("flash_attention_tokens_bwd", q, k, v, out, lse, dout, num_heads)
     if q.device.type == "cpu":
         return flash_attention_tokens_bwd_reference(q, k, v, out, lse, dout,
                                                     num_heads, temperature)
-    _check_launch("flash_attention_tokens_bwd", num_heads, q, k, v, out, dout, lse)
-    delta = (dout.float() * out.float()).view(B, L, num_heads, D // num_heads) \
-        .sum(dim=-1).transpose(1, 2).contiguous()
-    dq = torch.zeros(B, L, D, dtype=torch.float32, device=q.device)
+    delta = _delta(out, dout, num_heads)
+    if not _fused_bwd_enabled():
+        args = (q, k, v, dout, lse, delta, num_heads, temperature)
+        return (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _bwd_lib().flash_tokens_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, L, D, num_heads, _scale(D // num_heads, temperature),
-        _DTYPE_CODE[q.dtype], stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: "
-                           f"cudaError {rc}")
+    _launch_bwd("flash_tokens_bwd", (dq, dk, dv), q, k, v, dout, lse, delta, num_heads,
+                temperature)
     BWD_LAUNCHES += 1
     return dq.to(q.dtype), dk, dv
 
@@ -289,3 +385,34 @@ def flash_attention_tokens_trainable(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionTokens.apply(q, k, v, num_heads, temperature)
     return flash_attention_tokens(q, k, v, num_heads, temperature)
+
+
+def flash_attention(
+    q: Tensor, k: Tensor, v: Tensor, temperature: float = 1.0,
+    block_q: int = 256, block_k: int = 512,
+) -> Tensor:
+    """softmax(q k^T / (sqrt(D) * temperature)) v on head-major [B, H, L, D]
+    (the JAX package's `flash_attention`), forward only. The block sizes are
+    checked as the JAX function asserts them (each capped at L must divide
+    L); the CUDA kernel tiles by its own 64. A contiguous [B, H, L, D] is
+    token-major [B*H, L, D] with one head, so CUDA tensors launch the lean
+    kernel on that view (bf16 or float32, D in `HEAD_DIMS`, L a multiple
+    of 64); CPU tensors take `flash_attention_reference`. As for the lean
+    forward, a CUDA call that would need a gradient raises."""
+    global HM_LAUNCHES
+    _check_qkv("flash_attention", q, k, v, 1, layout="[B, H, L, D]", rank=4)
+    B, H, L, D = q.shape
+    bq, bk = min(block_q, L), min(block_k, L)
+    if bq <= 0 or bk <= 0 or L % bq or L % bk:
+        raise ValueError(f"flash_attention: L={L} does not divide by the blocks "
+                         f"({block_q}, {block_k})")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, temperature)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: an input needs a gradient, which the "
+                           "lean kernel cannot give")
+    _check_launch("flash_attention", 1, q, k, v)
+    flat = (t.view(B * H, L, D) for t in (q, k, v))
+    out, _ = _launch_fwd(*flat, 1, temperature, with_lse=False)
+    HM_LAUNCHES += 1
+    return out.view(B, H, L, D)

@@ -365,3 +365,119 @@ def test_flash_kernels_other_head_dims(cuda, dtype, head_dim):
     bound = 1e-5 if dtype == torch.float32 else 2.0 ** -10
     for a, b in zip(kg, pg):
         assert _rel(a.float(), b.float()) <= bound
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_split_bwd_kernels_match_plain(cuda, monkeypatch, dtype, head_dim):
+    """The split dq and dk/dv kernels (`flash_attention_tokens_bwd` under
+    SMOKEPHYS_FUSED_BWD=0) against their plain versions on the same
+    forward output and lse, with the fused kernel's bounds:
+    ||d||/||ref|| <= 1e-5 in float32 and 2^-10 in bf16 for each of dq, dk,
+    dv. Neither kernel uses atomics, so two runs are bit-equal and each
+    episode of a batch of 2 is bit-equal to its call alone; one launch of
+    each per call."""
+    monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", "0")
+    heads = 256 // head_dim
+    g = torch.Generator().manual_seed(100 + head_dim)
+    q, k, v, go = (torch.randn(2, 512, 256, generator=g).to(cuda, dtype) for _ in range(4))
+    o, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads, 0.8)
+    args = (q, k, v, o, lse, go, heads, 0.8)
+    n = (attn_ops.BWD_DQ_LAUNCHES, attn_ops.BWD_DKV_LAUNCHES, attn_ops.BWD_LAUNCHES)
+    dq, dk, dv = attn_ops.flash_attention_tokens_bwd(*args)
+    assert (attn_ops.BWD_DQ_LAUNCHES, attn_ops.BWD_DKV_LAUNCHES,
+            attn_ops.BWD_LAUNCHES) == (n[0] + 1, n[1] + 1, n[2])
+    refs = (attn_ops.flash_attention_tokens_bwd_dq_reference(*args),
+            *attn_ops.flash_attention_tokens_bwd_dkv_reference(*args))
+    bound = 1e-5 if dtype == torch.float32 else 2.0 ** -10
+    for name, a, b in zip("qkv", (dq, dk, dv), refs):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel(a.float(), b.float()) <= bound, (name, _rel(a.float(), b.float()))
+    for a, b in zip((dq, dk, dv), attn_ops.flash_attention_tokens_bwd(*args)):
+        assert torch.equal(a, b)
+    for e in range(2):
+        solo = [t[e:e + 1].contiguous() for t in (q, k, v, o, lse, go)]
+        for a, b in zip((dq, dk, dv),
+                        attn_ops.flash_attention_tokens_bwd(*solo, heads, 0.8)):
+            assert torch.equal(a[e:e + 1], b)
+
+
+def test_flash_split_route_launches(cuda, monkeypatch):
+    """SMOKEPHYS_FUSED_BWD selects the backward on every call: unset, one
+    fused launch; "0", one dq and one dk/dv launch and no fused one, with
+    the split plain versions' bounds; the same through the autograd
+    Function (one forward-with-lse launch each way), with the route's
+    gradients exactly."""
+    q, k, v, go = _qkv(cuda, torch.bfloat16, seed=6)
+    o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, 4)
+    args = (q, k, v, o, lse, go, 4)
+
+    def counts():
+        return (attn_ops.LSE_LAUNCHES, attn_ops.BWD_LAUNCHES, attn_ops.BWD_DQ_LAUNCHES,
+                attn_ops.BWD_DKV_LAUNCHES)
+
+    for env, added in ((None, (0, 1, 0, 0)), ("0", (0, 0, 1, 1))):
+        if env is None:
+            monkeypatch.delenv("SMOKEPHYS_FUSED_BWD", raising=False)
+        else:
+            monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", env)
+        before = counts()
+        grads = attn_ops.flash_attention_tokens_bwd(*args)
+        assert tuple(b - a for a, b in zip(before, counts())) == added
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = counts()
+        attn_ops.flash_attention_tokens_trainable(*ts, 4).backward(go)
+        assert tuple(b - a for a, b in zip(before, counts())) == (1, *added[1:])
+    refs = (attn_ops.flash_attention_tokens_bwd_dq_reference(*args),
+            *attn_ops.flash_attention_tokens_bwd_dkv_reference(*args))
+    for a, b in zip(grads, refs):
+        assert _rel(a.float(), b.float()) <= 2.0 ** -10
+    for t, want in zip(ts, grads):
+        assert torch.equal(t.grad, want)
+
+
+@pytest.mark.parametrize("shape,temperature", [((8, 8, 1024, 64), 1.0),
+                                               ((2, 4, 256, 64), 1.0),
+                                               ((1, 2, 128, 32), 1.5)],
+                         ids=["model", "jax_test", "temperature"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_attention_head_major_matches_plain(cuda, dtype, shape, temperature):
+    """The head-major forward (the lean kernel on [B*H, L, D] with one head)
+    against its plain version, with the lean kernel's bounds: float32 atol
+    1e-5; bf16 two ulps of the largest output and ||d||/||ref|| <= 2^-8;
+    one launch, counted as head-major only."""
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda, dtype) for _ in range(3))
+    n, lean = attn_ops.HM_LAUNCHES, attn_ops.LAUNCHES
+    out = attn_ops.flash_attention(q, k, v, temperature=temperature)
+    assert (attn_ops.HM_LAUNCHES, attn_ops.LAUNCHES) == (n + 1, lean)
+    ref = attn_ops.flash_attention_reference(q, k, v, temperature).float()
+    assert out.dtype == dtype and out.shape == shape
+    out = out.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(out, ref, atol=2 * _bf16_ulp(float(ref.abs().max())),
+                                   rtol=0)
+        assert _rel(out, ref) <= 2.0 ** -8
+
+
+def test_flash_attention_head_major_refusals(cuda):
+    q = torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shape"):
+        attn_ops.flash_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="divide"):
+        attn_ops.flash_attention(q, q, q, block_q=96)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn_ops.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    short = q[:, :, :100].contiguous()
+    with pytest.raises(ValueError, match="multiple"):
+        attn_ops.flash_attention(short, short, short)
+    with pytest.raises(TypeError, match="not supported"):
+        attn_ops.flash_attention(q.half(), q.half(), q.half())
+    t = torch.randn(1, 2, 128, 128, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_ops.flash_attention(t, t, t)
+    with pytest.raises(RuntimeError, match="gradient"):
+        qg = q.clone().requires_grad_()
+        attn_ops.flash_attention(qg, q, q)

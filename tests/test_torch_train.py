@@ -214,8 +214,9 @@ def _port_trainer(jax_step, **model_opts):
                         generator=torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("use_flash", [False, True], ids=["einsum", "flash"])
-def test_train_step_matches_jax(jax_step, use_flash):
+@pytest.mark.parametrize("use_flash,split", [(False, False), (True, False), (True, True)],
+                         ids=["einsum", "flash", "flash-split"])
+def test_train_step_matches_jax(jax_step, monkeypatch, use_flash, split):
     """One port train step (batch-statistic BatchNorm, dropout off, the same
     chaos fields) against the JAX step above: the losses rtol 1e-4; the
     updated batch_stats atol 1e-5; the global gradient norm rtol 1e-5 of
@@ -228,7 +229,12 @@ def test_train_step_matches_jax(jax_step, use_flash):
     key projection's bias, which shifts every score of a row alike) are
     rounding noise on both sides: each must be below 1e-7 of the global
     norm. With `use_flash` the port's attention is the autograd Function
-    over the plain flash pair, held against the JAX model's einsum path."""
+    over the plain flash pair, held against the JAX model's einsum path;
+    with `split` the step runs under SMOKEPHYS_FUSED_BWD=0, the split
+    route, whose CPU backward is the same plain backward: the variable
+    leaves the step as it is."""
+    if split:
+        monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", "0")
     trainer = _port_trainer(jax_step, use_flash=use_flash)
     model = trainer.model
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
