@@ -7,7 +7,8 @@ From the root of a checkout, with one CUDA card:
 
 1. prints the card, the device count and nvidia-smi's name and power limit;
 2. builds the six CUDA sources with nvcc (in parallel) and prints the
-   seconds;
+   seconds; counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+   in the SASS of libflash_tokens.so (cuobjdump) and fails if either is 0;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card (fused solver step and multi-step at 128^2, one episode and a batch
    of four, the multi-step again at the dataset's 64 in the timing phase; lean flash attention at B=4 in bf16 and float32 and at the
@@ -18,7 +19,10 @@ From the root of a checkout, with one CUDA card:
    each call run twice and each episode of a batch of 2 alone, all
    bit-equal; the head-major `flash_attention` driven once at
    [8, 8, 1024, 64] bf16 with its launch count, and held against its plain
-   version there in bf16 and float32 and at the JAX tests' shapes);
+   version there in bf16 and float32 and at the JAX tests' shapes; the
+   lean forward and the forward with logsumexp in bf16 at L = 192 (head
+   dims 64, 16, 128) and L = 1024 (16, 128), B >= 3, each lean output the
+   same bits as the LSE one and as a second call);
 4. serving phase: the serving path of `config/config_serving.yaml` on
    `checkpoints/smokephysnet_128_best.npz` through the port's entry points:
    the 20-frame test sequence (20 fused-step launches) and one batched bf16
@@ -70,7 +74,7 @@ From the root of a checkout, with one CUDA card:
    launches of the training pair) against einsum; timings of the CG, the
    3D step, one episode, the forward and the head_dim-32 kernels, and the
    3D step's device time by kernel (torch.profiler);
-10. prints the kernels' JSON line, the nvidia-smi line and, last,
+10. prints the kernels' JSON line, the SASS counts, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
@@ -106,7 +110,7 @@ F32_FLOPS = 67e12
 FUSED_ATOL = 1e-5      # the kernel rounds as the plain version (-fmad=false)
 # bf16 flash: the largest |d| within two bf16 ulps of the largest output
 # (|o| < 0.5 at these shapes, whose ulp is 2^-9), and ||d|| / ||ref|| within
-# 2^-8. The kernel rounds P to bf16 against a running max per 64-key tile,
+# 2^-8. The kernel rounds P to bf16 against a running max per 128-key tile,
 # the plain version against the row's max: two roundings of P, ~sqrt(2) *
 # 2^-9 of relative noise; an output one ulp off everywhere gives ~2^-7.5.
 FLASH_BF16_ULPS = 2
@@ -414,6 +418,72 @@ def head_major_check(attn_ops, dev, gen, batch, heads, hd):
     say(f"head-major flash_attention {list(cases[0][0])} bf16, one call: launches {counts}")
     expect_counts("head-major flash_attention", counts, flash_attention=1)
     return counts, bf16_err
+
+
+# (batch, L, head_dim) of the forward's tail and head-dim checks, width 512
+# (256 at head_dim 16): L = 192 is an odd count of 64-row tiles (the bf16
+# kernel's last 128-query tile half out of range, its last 128-key tile
+# half masked); B >= 3 shows a read past a batch element's end
+FWD_EXTRA_CASES = ((3, 192, 64), (3, 192, 16), (3, 192, 128), (4, 1024, 16),
+                   (4, 1024, 128))
+
+
+def forward_extra_checks(attn_ops, dev, gen):
+    """The lean forward and the forward with logsumexp, bf16, at
+    `FWD_EXTRA_CASES` against their plain versions with the bounds of the
+    model's shape (out two bf16 ulps of the largest value and ||d||/||ref||
+    2^-8, lse `LSE_ATOL`); the lean output equal to the LSE instantiation's
+    to the bit, and to a second call's. Returns (largest lean |d|, largest
+    LSE-forward |d|)."""
+    import torch
+
+    lean_err = lse_out_err = 0.0
+    for batch, length, hd in FWD_EXTRA_CASES:
+        width = 256 if hd == 16 else 512
+        heads = width // hd
+        q, k, v = (torch.randn(batch, length, width, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(3))
+        o = attn_ops.flash_attention_tokens(q, k, v, heads)
+        ol, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+        again = attn_ops.flash_attention_tokens(q, k, v, heads)
+        ro, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
+        torch.cuda.synchronize()
+        bound = FLASH_BF16_ULPS * bf16_ulp(float(ro.float().abs().max()))
+        errs = (maxerr(o, ro), maxerr(ol, ro))
+        rels = (rel_norm(o, ro), rel_norm(ol, ro))
+        lse_err = maxerr(lse, rlse)
+        same = torch.equal(o, ol) and torch.equal(o, again)
+        lean_err, lse_out_err = max(lean_err, errs[0]), max(lse_out_err, errs[1])
+        say(f"kernel flash_attention_tokens (+ _fwd_lse) B={batch} L={length} D={width} "
+            f"H={heads} (head_dim {hd}) bf16: max|d| {errs[0]:.3e} / {errs[1]:.3e} (bound "
+            f"{bound:.3e}), ||d||/||ref|| {rels[0]:.3e} / {rels[1]:.3e} (bound "
+            f"{FLASH_BF16_REL_NORM:.3e}), lse max|d| {lse_err:.3e} (bound {LSE_ATOL:g}); "
+            f"lean = LSE output and = a second call, bit for bit: {same}")
+        if not (max(errs) <= bound and max(rels) <= FLASH_BF16_REL_NORM
+                and lse_err <= LSE_ATOL and same):
+            fail(f"the flash forward disagrees with its plain version at B={batch} "
+                 f"L={length} head_dim {hd}")
+    return lean_err, lse_out_err
+
+
+def sass_counts(library):
+    """(HGMMA, UTMALDG) instruction counts in the SASS of a built library,
+    from the toolkit's cuobjdump; None where the toolkit has none."""
+    from smokephysai_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {library} failed: {out.stderr.strip()[:500]}")
+    return out.stdout.count("HGMMA"), out.stdout.count("UTMALDG")
+
+
+def flash_rate(flops, ms, bound_ms):
+    """'N TFLOP/s, x % of bound' of a timed attention call."""
+    return f"{flops / ms / 1e9:.0f} TFLOP/s, {100 * bound_ms / ms:.1f} % of bound"
 
 
 class PlainFlash:
@@ -1263,6 +1333,11 @@ def main():
                       (cg_ops.SOURCE, cg_ops.FLAGS)])
     build_s = time.time() - t
     say(f"build: six sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
+    sass = sass_counts(_build.library_path(attn_ops.SOURCE, attn_ops.FLAGS))
+    sass_line = ("sass libflash_tokens.so: cuobjdump not in the toolkit" if sass is None else
+                 f"sass libflash_tokens.so: HGMMA {sass[0]}, UTMALDG {sass[1]} (cuobjdump -sass)")
+    if sass is not None and min(sass) == 0:
+        fail(f"the flash forward does not run on wgmma and TMA: {sass_line}")
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1399,6 +1474,9 @@ def main():
     del q, k, v, g, o, lse, ro, rlse
     hm_counts, hm_err = head_major_check(attn_ops, dev, gen, train_batch, heads,
                                          width // heads)
+    extra_lean_err, extra_lse_err = forward_extra_checks(attn_ops, dev, gen)
+    flash_errs[("extra", "bfloat16")] = extra_lean_err
+    lse_out_err = max(lse_out_err, extra_lse_err)
 
     # ---------------------------------------------------------------- slice
     if not os.path.exists(CHECKPOINT):
@@ -1504,9 +1582,11 @@ def main():
         library[batch] = timed(lambda: sdpa(qh, kh, vh))
         bound, by = flash_bound(batch)
         timings[("flash_attention_tokens", batch)] = (ms, plain_ms, bound, by)
+        fl = 4 * batch * heads * 1024 * 1024 * (width // heads)
         say(f"time flash_attention_tokens B={batch} L=1024 D={width} H={heads} bf16 "
-            f"on {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {library[batch]:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"on {name}: kernel {ms:.4f} ms ({flash_rate(fl, ms, bound)}), plain "
+            f"{plain_ms:.4f} ms, SDPA {library[batch]:.4f} ms "
+            f"({flash_rate(fl, library[batch], bound)}), bound {bound:.4f} ms ({by})")
         del q, k, v, qh, kh, vh
 
     serve_batch = config["training"]["batch_size"]
@@ -1570,9 +1650,11 @@ def main():
     fb = lower_bound(4 * tb * 1024 * width * 2 + tb * heads * 1024 * 4,
                      4 * tb * heads * 1024 * 1024 * hd, BF16_FLOPS)
     timings["flash_attention_tokens_fwd_lse"] = (ms, plain_ms, *fb, lib_ms)
+    fl = 4 * tb * heads * 1024 * 1024 * hd
     say(f"time flash_attention_tokens_fwd_lse B={tb} L=1024 D={width} H={heads} bf16 "
-        f"on {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA forward "
-        f"(inputs need grad) {lib_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]})")
+        f"on {name}: kernel {ms:.4f} ms ({flash_rate(fl, ms, fb[0])}), plain "
+        f"{plain_ms:.4f} ms, SDPA forward (inputs need grad) {lib_ms:.4f} ms "
+        f"({flash_rate(fl, lib_ms, fb[0])}), bound {fb[0]:.4f} ms ({fb[1]})")
     ms = timed(lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads))
     plain_ms = timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
         q, k, v, o, lse, g, heads), runs=5)
@@ -1621,9 +1703,11 @@ def main():
     hb = lower_bound(4 * tb * heads * 1024 * hd * 2, 4 * tb * heads * 1024 * 1024 * hd,
                      BF16_FLOPS)
     timings["flash_attention"] = (ms, plain_ms, *hb, lib_ms)
+    fl = 4 * tb * heads * 1024 * 1024 * hd
     say(f"time flash_attention [{tb},{heads},1024,{hd}] bf16 on {name}: kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, SDPA (same head-major tensors) {lib_ms:.4f} ms, "
-        f"bound {hb[0]:.4f} ms ({hb[1]})")
+        f"ms ({flash_rate(fl, ms, hb[0])}), plain {plain_ms:.4f} ms, SDPA (same "
+        f"head-major tensors) {lib_ms:.4f} ms ({flash_rate(fl, lib_ms, hb[0])}), bound "
+        f"{hb[0]:.4f} ms ({hb[1]})")
     del qh, kh, vh
     train_ms = statistics.median(train_info["step_ms"][1:])
     say(f"time train step B={tb} (config_train_fast: bf16, flash, fast_math, full "
@@ -1772,6 +1856,7 @@ def main():
         })
     say(f"wall: {time.time() - T0:.1f} s")
     say(json.dumps({"kernels": kernels}))
+    say(sass_line)
     say(smi_line)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -37,7 +37,7 @@ SOURCE = "flash_tokens.cu"
 BWD_SOURCE = "flash_bwd.cu"
 FLAGS = ()
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are instantiated for
-BLOCK = 64  # the kernels' query and key tile
+BLOCK = 64  # L must be a multiple of it (the bf16 forward masks a half 128-key tile)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # kernel launches since the last reset (read by chip_smoke.py)
@@ -394,7 +394,7 @@ def flash_attention(
     """softmax(q k^T / (sqrt(D) * temperature)) v on head-major [B, H, L, D]
     (the JAX package's `flash_attention`), forward only. The block sizes are
     checked as the JAX function asserts them (each capped at L must divide
-    L); the CUDA kernel tiles by its own 64. A contiguous [B, H, L, D] is
+    L); the CUDA kernel tiles by its own sizes. A contiguous [B, H, L, D] is
     token-major [B*H, L, D] with one head, so CUDA tensors launch the lean
     kernel on that view (bf16 or float32, D in `HEAD_DIMS`, L a multiple
     of 64); CPU tensors take `flash_attention_reference`. As for the lean

@@ -221,3 +221,35 @@ def test_head_dim_32_matches_pallas(jdtype, tdtype):
             np.testing.assert_allclose(got, want, atol=2e-5, rtol=0, err_msg=name)
         else:
             assert _rel(got, want) <= 2.0 ** -7, name
+
+
+# ---------------------------------------------------------------- tail shapes
+
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_tail_length_matches_pallas(head_dim):
+    """L = 192 (three 64-row tiles: the card's kernel takes 128 queries and
+    128 keys at a time, so its last query tile is half out of range and its
+    last key tile half masked) at head dims 16 and 128, B = 3, bf16: the
+    plain lean forward and forward with logsumexp against the JAX package's
+    `flash_attention_tokens(..., block_q=64, block_k=64)` and
+    `_flash_tokens_fwd_lse` (interpret mode), with the head_dim-64 tests'
+    bounds: out within two bf16 ulps of its largest value and
+    ||d||/||ref|| <= 2^-8, lse atol 1e-4."""
+    b, length, width = 3, 192, 128
+    heads = width // head_dim
+    rng = np.random.default_rng(head_dim)
+    q, k, v = (rng.standard_normal((b, length, width)).astype(np.float32) for _ in range(3))
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    scale = 1.0 / (np.sqrt(head_dim) * TEMP)
+    jlean = jflash(*jargs, heads, temperature=TEMP, block_q=64, block_k=64)
+    jout, jlse = _flash_tokens_fwd_lse(*jargs, heads, scale, 64, 64)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    lean = flash_attention_tokens(tq, tk, tv, heads, temperature=TEMP)
+    out, lse = attn.flash_attention_tokens_fwd_lse(tq, tk, tv, heads, TEMP)
+    assert lean.shape == (b, length, width) and lse.shape == (b, heads, length)
+    for got, want in ((lean, jlean), (out, jout)):
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got, want, atol=2 * ulp, rtol=0)
+        assert _rel(got, want) <= 2.0 ** -8
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-4, rtol=0)

@@ -72,19 +72,37 @@ def _bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
+# (batch, length, head_dim) of the forward tests, width 256: the first is
+# each test's shape before the tail cases; then every head dim at L = 64
+# and 192, odd counts of 64-row tiles (the bf16 kernel's last 128-query
+# tile is half out of range and its last 128-key tile half masked), and
+# at 1024; B >= 3, so that a read past a batch element's end would show
+FWD_SHAPES = [(3, L, hd) for hd in (16, 32, 64, 128) for L in (64, 192, 1024)]
+
+
+def _fwd_id(shape):
+    return "B{}-L{}-hd{}".format(*shape)
+
+
+@pytest.mark.parametrize("shape", [(3, 512, 64)] + FWD_SHAPES, ids=_fwd_id)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_flash_kernel_matches_plain(cuda, dtype):
+def test_flash_kernel_matches_plain(cuda, dtype, shape):
     """float32: atol 1e-5 (sums in another order). bfloat16: the largest |d|
     within two bf16 ulps of the largest output, and ||d|| / ||ref|| within
     2^-8: the kernel rounds P to bf16 against a running max per key tile,
     the plain version against the row's max, which leaves ~sqrt(2) * 2^-9
-    of relative noise; one ulp off everywhere gives ~2^-7.5."""
-    g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(3, 512, 256, generator=g).to(cuda, dtype) for _ in range(3))
+    of relative noise; one ulp off everywhere gives ~2^-7.5. A second call
+    gives the same bits."""
+    batch, length, head_dim = shape
+    heads = 256 // head_dim
+    g = torch.Generator().manual_seed(1 + length + head_dim)
+    q, k, v = (torch.randn(batch, length, 256, generator=g).to(cuda, dtype)
+               for _ in range(3))
     before = attn_ops.LAUNCHES
-    out = attn_ops.flash_attention_tokens(q, k, v, 4, temperature=0.8)
+    out = attn_ops.flash_attention_tokens(q, k, v, heads, temperature=0.8)
     assert attn_ops.LAUNCHES == before + 1
-    ref = attn_ops.flash_attention_tokens_reference(q, k, v, 4, temperature=0.8)
+    assert torch.equal(out, attn_ops.flash_attention_tokens(q, k, v, heads, temperature=0.8))
+    ref = attn_ops.flash_attention_tokens_reference(q, k, v, heads, temperature=0.8)
     assert out.dtype == dtype
     out, ref = out.float(), ref.float()
     if dtype == torch.float32:
@@ -204,20 +222,26 @@ def _qkv(dev, dtype, batch=2, length=256, width=256, seed=3):
     return [torch.randn(batch, length, width, generator=g).to(dev, dtype) for _ in range(4)]
 
 
+@pytest.mark.parametrize("shape", [(2, 256, 64)] + FWD_SHAPES, ids=_fwd_id)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_flash_fwd_lse_kernel_matches_plain(cuda, dtype):
+def test_flash_fwd_lse_kernel_matches_plain(cuda, dtype, shape):
     """The forward-with-logsumexp kernel: out as the lean kernel is held
     (float32 atol 1e-5; bf16 two ulps of the largest output and ||d||/||ref||
     <= 2^-8); lse atol 1e-4 (float32 scores on both sides); the lean
-    instantiation's output is unchanged by the variant."""
-    q, k, v, _ = _qkv(cuda, dtype)
+    instantiation's output is the same bits (the same code with the lse
+    store compiled out), and so is a second call's."""
+    batch, length, head_dim = shape
+    heads = 256 // head_dim
+    q, k, v, _ = _qkv(cuda, dtype, batch=batch, length=length, seed=3 + head_dim)
     before = attn_ops.LSE_LAUNCHES
-    out, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, 4, temperature=0.8)
+    out, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads, temperature=0.8)
     assert attn_ops.LSE_LAUNCHES == before + 1
-    rout, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, 4, 0.8)
+    rout, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads, 0.8)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
-    lean = attn_ops.flash_attention_tokens(q, k, v, 4, temperature=0.8)
+    lean = attn_ops.flash_attention_tokens(q, k, v, heads, temperature=0.8)
     assert torch.equal(out, lean)
+    again, lse_again = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads, temperature=0.8)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
     out, rout = out.float(), rout.float()
     if dtype == torch.float32:
         torch.testing.assert_close(out, rout, atol=1e-5, rtol=0)
