@@ -8,7 +8,9 @@ From the root of a checkout, with one CUDA card:
 1. prints the card, the device count and nvidia-smi's name and power limit;
 2. builds the six CUDA sources with nvcc (in parallel) and prints the
    seconds; counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-   in the SASS of libflash_tokens.so (cuobjdump) and fails if either is 0;
+   in the SASS of libflash_tokens.so and libflash_bwd.so (cuobjdump) and
+   fails if either is 0 in either, or if ptxas reported serialised wgmma
+   (C75xx) for a kernel of flash_bwd.cu;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card (fused solver step and multi-step at 128^2, one episode and a batch
    of four, the multi-step again at the dataset's 64 in the timing phase; lean flash attention at B=4 in bf16 and float32 and at the
@@ -17,7 +19,9 @@ From the root of a checkout, with one CUDA card:
    also in float32; there, in bf16 and float32, the split backward's dq
    and dk/dv kernels against their plain versions and the fused kernel,
    each call run twice and each episode of a batch of 2 alone, all
-   bit-equal; the head-major `flash_attention` driven once at
+   bit-equal, the split dk and dv also equal to the fused kernel's; the
+   backward (fused and split) in bf16 and float32 at L = 192 with head
+   dims 16 and 128, B = 3; the head-major `flash_attention` driven once at
    [8, 8, 1024, 64] bf16 with its launch count, and held against its plain
    version there in bf16 and float32 and at the JAX tests' shapes; the
    lean forward and the forward with logsumexp in bf16 at L = 192 (head
@@ -41,7 +45,8 @@ From the root of a checkout, with one CUDA card:
    6 dk/dv launches, no fused one) held against the plain backward, the
    train step on both routes timed in turns, one eval pass, a checkpoint
    written and served again through `train/serving.load_model`;
-7. timing phase: CUDA-event medians after warm-up; with --trace, also
+7. timing phase: CUDA-event medians after warm-up (the backward kernels
+   and SDPA's backward in turns, the median of three rounds); with --trace, also
    traces the serving forward, the simulator step and one train step with
    torch.profiler and prints where their device time goes;
 8. vorticity phase: `config/config_256_vorticity.yaml`, where vorticity
@@ -72,7 +77,8 @@ From the root of a checkout, with one CUDA card:
    backward pair), the model with
    `tpu.use_flash` (4 lean launches) and its input gradient (4 + 4
    launches of the training pair) against einsum; timings of the CG, the
-   3D step, one episode, the forward and the head_dim-32 kernels, and the
+   3D step, one episode, the forward and the head_dim-32 kernels (the
+   backward's and the split pair's in turns with SDPA's backward), and the
    3D step's device time by kernel (torch.profiler);
 10. prints the kernels' JSON line, the SASS counts, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
@@ -202,6 +208,16 @@ def timed(fn, runs=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def in_turns(fns, rounds=3):
+    """{name: the median over `rounds` rounds of `timed(fn)`}, the calls of
+    `fns` ({name: fn}) taken in turns within each round."""
+    readings = {}
+    for _ in range(rounds):
+        for fname, fn in fns.items():
+            readings.setdefault(fname, []).append(timed(fn))
+    return {fname: statistics.median(v) for fname, v in readings.items()}
 
 
 def maxerr(a, b):
@@ -369,12 +385,14 @@ def split_check(attn_ops, args, heads, tag, bound, fused):
     rels = [rel_norm(a, b) for a, b in zip(got, refs)]
     gaps = [rel_norm(a, b) for a, b in zip(got, fused)]
     same = all(torch.equal(a, b) for a, b in zip(got, again))
+    # the dk/dv kernel is the fused kernel's code without its dQ step
+    dkv_fused = torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
     say(f"kernel flash_attention_tokens_bwd_dq / _dkv (split) {tag}: ||d||/||ref|| dq "
         f"{rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} (bound {bound:.3e}); vs the "
-        f"fused kernel dq {gaps[0]:.3e} dk {gaps[1]:.3e} dv {gaps[2]:.3e}; two runs "
-        f"bit-equal {same}; episodes of a batch of 2 = their calls alone "
-        f"{solo_ok if args[0].shape[0] >= 2 else 'n/a (batch 1)'}")
-    if not (max(rels) <= bound and same and solo_ok):
+        f"fused kernel dq {gaps[0]:.3e} dk {gaps[1]:.3e} dv {gaps[2]:.3e}, dk and dv "
+        f"bit-equal {dkv_fused}; two runs bit-equal {same}; episodes of a batch of 2 = "
+        f"their calls alone {solo_ok if args[0].shape[0] >= 2 else 'n/a (batch 1)'}")
+    if not (max(rels) <= bound and same and solo_ok and dkv_fused):
         fail(f"the split backward kernels disagree with their plain versions or "
              f"themselves at {tag}")
     return {"flash_attention_tokens_bwd_dq": maxerr(got[0], refs[0]),
@@ -464,6 +482,46 @@ def forward_extra_checks(attn_ops, dev, gen):
             fail(f"the flash forward disagrees with its plain version at B={batch} "
                  f"L={length} head_dim {hd}")
     return lean_err, lse_out_err
+
+
+# (batch, L, head_dim) of the backward's tail checks: L = 192, where the
+# bf16 kernels' last 128-row tile (keys of the fused and dk/dv kernel,
+# queries of the dq kernel) lies half past L; B = 3
+BWD_EXTRA_CASES = ((3, 192, 16), (3, 192, 128))
+
+
+def backward_extra_checks(attn_ops, dev, gen):
+    """The fused backward and the split pair in bf16 and float32 at
+    `BWD_EXTRA_CASES` (width 256 at head_dim 16, else 512) against their
+    plain versions with the model shape's bounds, the split pair also run
+    twice, batched against solo and its dk, dv against the fused kernel's,
+    all bit-equal. Returns the largest bf16 |d| of each kernel."""
+    import torch
+
+    errs = {}
+    for batch, length, hd in BWD_EXTRA_CASES:
+        width = 256 if hd == 16 else 512
+        heads = width // hd
+        base = [torch.randn(batch, length, width, generator=gen) for _ in range(4)]
+        for dtype, bound in ((torch.bfloat16, BWD_BF16_REL_NORM),
+                             (torch.float32, BWD_F32_REL_NORM)):
+            q, k, v, g = (t.to(dev, dtype) for t in base)
+            o, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
+            kg = attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads)
+            pg = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, o, lse, g, heads)
+            torch.cuda.synchronize()
+            rels = [rel_norm(a, b) for a, b in zip(kg, pg)]
+            tag = f"B={batch} L={length} D={width} H={heads} (head_dim {hd}) {str(dtype)[6:]}"
+            say(f"kernel flash_attention_tokens_bwd {tag}: ||d||/||ref|| dq {rels[0]:.3e} "
+                f"dk {rels[1]:.3e} dv {rels[2]:.3e} (bound {bound:.3e})")
+            if not max(rels) <= bound:
+                fail(f"flash_attention_tokens_bwd disagrees with its plain version at {tag}")
+            split = split_check(attn_ops, (q, k, v, o, lse, g), heads, tag, bound, kg)
+            if dtype == torch.bfloat16:
+                split["flash_attention_tokens_bwd"] = max(maxerr(a, b) for a, b in zip(kg, pg))
+                for kname, err in split.items():
+                    errs[kname] = max(errs.get(kname, 0.0), err)
+    return errs
 
 
 def sass_counts(library):
@@ -1254,12 +1312,18 @@ def volumetric_phase(dev, name, trace):
                *lower_bound(io + batch * heads * 512 * 4, fwd_flops, BF16_FLOPS),
                timed(lambda: sdpa(qh, kh, vh)))
         oh = sdpa(qh, kh, vh)
-        bwd = (timed(lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads)),
+        delta = attn_ops._delta(o, g, heads)
+        turns = in_turns({  # the backward kernels and SDPA's backward, three rounds
+            "kernel": lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads),
+            "dq": lambda: attn_ops._launch_bwd_dq(q, k, v, g, lse, delta, heads, 1.0),
+            "dkv": lambda: attn_ops._launch_bwd_dkv(q, k, v, g, lse, delta, heads, 1.0),
+            "sdpa": lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)})
+        bwd = (turns["kernel"],
                timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
                    q, k, v, o, lse, g, heads), runs=5),
                *lower_bound(2 * io + batch * heads * 512 * 4,
                             10 * batch * heads * 512 * 512 * hd, BF16_FLOPS),
-               timed(lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)))
+               turns["sdpa"])
         for kname, t_ in (("flash_attention_tokens", lean),
                           ("flash_attention_tokens_fwd_lse", fwd),
                           ("flash_attention_tokens_bwd", bwd)):
@@ -1267,7 +1331,17 @@ def volumetric_phase(dev, name, trace):
             say(f"time {kname} [{batch},512,{width}] bf16 head_dim {hd} on {name}: kernel "
                 f"{t_[0]:.4f} ms, plain {t_[1]:.4f} ms, SDPA {t_[4]:.4f} ms, bound "
                 f"{t_[2]:.6f} ms ({t_[3]})")
-        del q, k, v, g, qh, kh, vh, gh, o, lse, oh
+        # the split pair's kernels alone on one delta (q, k, v, dO, lse and
+        # delta read once, the gradients written once)
+        for kname, products, outs in (("flash_attention_tokens_bwd_dq", 3, 1),
+                                      ("flash_attention_tokens_bwd_dkv", 4, 2)):
+            ms = turns[kname.rsplit("_", 1)[1]]
+            kb = lower_bound((4 + outs) * io // 4 + 2 * batch * heads * 512 * 4,
+                             2 * products * batch * heads * 512 * 512 * hd, BF16_FLOPS)
+            say(f"time {kname} [{batch},512,{width}] bf16 head_dim {hd} on {name}: kernel "
+                f"{ms:.4f} ms (delta given), SDPA backward {turns['sdpa']:.4f} ms, bound "
+                f"{kb[0]:.6f} ms ({kb[1]}); medians of three rounds in turns")
+        del q, k, v, g, qh, kh, vh, gh, o, lse, oh, delta
     del model, predict, ds, seqs
     return {"gen_counts": gen_counts, "flash_counts": {**flash_serve_counts, **{
         k_: grad_counts[k_] for k_ in ("flash_attention_tokens_fwd_lse",
@@ -1333,15 +1407,25 @@ def main():
                       (cg_ops.SOURCE, cg_ops.FLAGS)])
     build_s = time.time() - t
     say(f"build: six sources in {build_s:.2f} s (nvcc, sm_90a, one process each)")
-    sass = sass_counts(_build.library_path(attn_ops.SOURCE, attn_ops.FLAGS))
-    sass_line = ("sass libflash_tokens.so: cuobjdump not in the toolkit" if sass is None else
-                 f"sass libflash_tokens.so: HGMMA {sass[0]}, UTMALDG {sass[1]} (cuobjdump -sass)")
-    if sass is not None and min(sass) == 0:
-        fail(f"the flash forward does not run on wgmma and TMA: {sass_line}")
+    sass_lines = []
+    for src in (attn_ops.SOURCE, attn_ops.BWD_SOURCE):
+        lib = os.path.basename(_build.library_path(src, attn_ops.FLAGS))
+        sass = sass_counts(_build.library_path(src, attn_ops.FLAGS))
+        sass_lines.append(f"sass {lib}: cuobjdump not in the toolkit" if sass is None else
+                          f"sass {lib}: HGMMA {sass[0]}, UTMALDG {sass[1]} (cuobjdump -sass)")
+        if sass is not None and min(sass) == 0:
+            fail(f"the flash kernels of {src} do not run on wgmma and TMA: {sass_lines[-1]}")
+    sass_line = "; ".join(sass_lines)
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "serialized" in line:
                 say(f"  {src}: {line.strip()}")
+    serialised = [line.strip() for line in _build.build_logs.get(attn_ops.BWD_SOURCE, "")
+                  .splitlines() if "wgmma.mma_async instructions are serialized" in line]
+    if serialised:
+        fail(f"ptxas serialised the wgmma of a bf16 backward kernel: {serialised[0]}")
+    if attn_ops.BWD_SOURCE not in _build.build_logs:
+        say(f"  {attn_ops.BWD_SOURCE}: built before this run, no ptxas log to read")
 
     # ---------------------------------------------------------------- kernels
     config = load_config(CONFIG)
@@ -1475,6 +1559,11 @@ def main():
     hm_counts, hm_err = head_major_check(attn_ops, dev, gen, train_batch, heads,
                                          width // heads)
     extra_lean_err, extra_lse_err = forward_extra_checks(attn_ops, dev, gen)
+    for kname, err in backward_extra_checks(attn_ops, dev, gen).items():
+        if kname == "flash_attention_tokens_bwd":
+            bwd_errs["bfloat16"] = max(bwd_errs["bfloat16"], err)
+        else:
+            split_errs["bfloat16"][kname] = max(split_errs["bfloat16"][kname], err)
     flash_errs[("extra", "bfloat16")] = extra_lean_err
     lse_out_err = max(lse_out_err, extra_lse_err)
 
@@ -1655,38 +1744,50 @@ def main():
         f"on {name}: kernel {ms:.4f} ms ({flash_rate(fl, ms, fb[0])}), plain "
         f"{plain_ms:.4f} ms, SDPA forward (inputs need grad) {lib_ms:.4f} ms "
         f"({flash_rate(fl, lib_ms, fb[0])}), bound {fb[0]:.4f} ms ({fb[1]})")
-    ms = timed(lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads))
-    plain_ms = timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
-        q, k, v, o, lse, g, heads), runs=5)
-    oh = sdpa(qh, kh, vh)
-    lib_ms = timed(lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True))
-    bb = lower_bound(8 * tb * 1024 * width * 2 + tb * heads * 1024 * 4,
-                     10 * tb * heads * 1024 * 1024 * hd, BF16_FLOPS)
-    timings["flash_attention_tokens_bwd"] = (ms, plain_ms, *bb, lib_ms)
-    say(f"time flash_attention_tokens_bwd B={tb} L=1024 D={width} H={heads} bf16 "
-        f"on {name}: kernel {ms:.4f} ms (with the delta reduce, the dq buffer's "
-        f"zeroing and its cast), plain {plain_ms:.4f} ms, SDPA backward (autograd) "
-        f"{lib_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
-    # the split pair: each kernel alone on one precomputed delta, and both
-    # as the split route runs them (with the delta reduce)
+    # the backward: the fused route (delta, dq zeroing, kernel, cast), the
+    # split pair's kernels each alone on one precomputed delta, and SDPA's
+    # backward, in turns, three rounds
     args = (q, k, v, o, lse, g, heads)
     delta = attn_ops._delta(o, g, heads)
+    oh = sdpa(qh, kh, vh)
+    turns = in_turns({
+        "flash_attention_tokens_bwd":
+            lambda: attn_ops.flash_attention_tokens_bwd(*args),
+        "flash_attention_tokens_bwd_dq":
+            lambda: attn_ops._launch_bwd_dq(q, k, v, g, lse, delta, heads, 1.0),
+        "flash_attention_tokens_bwd_dkv":
+            lambda: attn_ops._launch_bwd_dkv(q, k, v, g, lse, delta, heads, 1.0),
+        "sdpa": lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)})
+    lib_ms = turns["sdpa"]
+    plain_ms = timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(*args), runs=5)
+    bb = lower_bound(8 * tb * 1024 * width * 2 + tb * heads * 1024 * 4,
+                     10 * tb * heads * 1024 * 1024 * hd, BF16_FLOPS)
+    ms = turns["flash_attention_tokens_bwd"]
+    timings["flash_attention_tokens_bwd"] = (ms, plain_ms, *bb, lib_ms)
+    fl = 10 * tb * heads * 1024 * 1024 * hd
+    say(f"time flash_attention_tokens_bwd B={tb} L=1024 D={width} H={heads} bf16 "
+        f"on {name}: kernel {ms:.4f} ms (with the delta reduce, the dq buffer's "
+        f"zeroing and its cast; {flash_rate(fl, ms, bb[0])}), plain {plain_ms:.4f} ms, "
+        f"SDPA backward (autograd) {lib_ms:.4f} ms ({flash_rate(fl, lib_ms, bb[0])}), "
+        f"bound {bb[0]:.4f} ms ({bb[1]}); medians of three rounds in turns")
     pair_flops = tb * heads * 1024 * 1024 * hd
     io, lse_bytes = tb * 1024 * width * 2, tb * heads * 1024 * 4
-    for kname, fn, ref, products, outs in (
-            ("flash_attention_tokens_bwd_dq", attn_ops._launch_bwd_dq,
+    for kname, ref, products, outs in (
+            ("flash_attention_tokens_bwd_dq",
              attn_ops.flash_attention_tokens_bwd_dq_reference, 3, 1),
-            ("flash_attention_tokens_bwd_dkv", attn_ops._launch_bwd_dkv,
+            ("flash_attention_tokens_bwd_dkv",
              attn_ops.flash_attention_tokens_bwd_dkv_reference, 4, 2)):
-        ms = timed(lambda: fn(q, k, v, g, lse, delta, heads, 1.0))
+        ms = turns[kname]
         plain_ms = timed(lambda: ref(*args), runs=5)
         # q, k, v, dO, lse and delta read once, the gradients written once
         kb = lower_bound((4 + outs) * io + 2 * lse_bytes, 2 * products * pair_flops,
                          BF16_FLOPS)
         timings[kname] = (ms, plain_ms, *kb, lib_ms)
         say(f"time {kname} B={tb} L=1024 D={width} H={heads} bf16 on {name}: kernel "
-            f"{ms:.4f} ms (delta given), plain {plain_ms:.4f} ms, SDPA backward "
-            f"(autograd, all three gradients) {lib_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]})")
+            f"{ms:.4f} ms (delta given; {flash_rate(2 * products * pair_flops, ms, kb[0])}), "
+            f"plain {plain_ms:.4f} ms, SDPA backward (autograd, all three gradients) "
+            f"{lib_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]}); medians of three rounds "
+            f"in turns")
     with split_backward():
         split_ms = timed(lambda: attn_ops.flash_attention_tokens_bwd(*args))
     say(f"time flash_attention_tokens_bwd under SMOKEPHYS_FUSED_BWD=0 (delta, dq kernel, "

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the flash forward kernel (csrc/flash_tokens.cu) goes,
-on one CUDA card.
+"""Where the time of the flash kernels (csrc/flash_tokens.cu,
+csrc/flash_bwd.cu) goes, on one CUDA card.
 
-    python3 scripts/flash_fwd_probe.py [--rounds N]
+    python3 scripts/flash_probe.py [--rounds N]
 
 From the root of a checkout. For the lean forward at the serving shape
 [64,1024,512] and the forward with logsumexp at the training shape
@@ -17,7 +17,14 @@ From the root of a checkout. For the lean forward at the serving shape
   `-DFLASH_PROBE_NO_EXP` (each exponential replaced by its input: what the
   MUFU costs);
 - the host time per call of the two wrappers and of SDPA at [1,128,512]
-  (2000 calls that the card keeps up with, on the host clock).
+  (2000 calls that the card keeps up with, on the host clock);
+- the backward at the training shape [8,1024,512] (8 heads of 64) and at
+  [8,512,256] (8 heads of 32): the device time of the fused kernel, of
+  the fused kernel built with `-DFLASH_PROBE_NO_DQ_RED` (its dQ reductions
+  left out, a wrong dq: what they cost), the split route's dq kernel and
+  dk/dv kernel (each launched alone on one delta, as the route gives it)
+  and SDPA's backward kernels (autograd through SDPA on the same tensors
+  in the head-major view), in turns.
 
 Prints the card's name and power limit first. Needs nvcc (the builds land
 in smokephysai_tpu_torch/_build/ as the wrappers' do).
@@ -31,6 +38,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = ((), ("-DFLASH_PROBE_NO_KV_LOADS",), ("-DFLASH_PROBE_NO_EXP",))
+NO_DQ_RED = ("-DFLASH_PROBE_NO_DQ_RED",)
 
 
 def device_ms(fn, calls=30):
@@ -66,6 +74,55 @@ def host_us(fn, calls=2000):
     return us
 
 
+def backward_rounds(attn, dev, gen, rounds):
+    """Device time of the three backward kernels and of SDPA's backward,
+    in turns, `rounds` rounds, then the medians."""
+    import torch
+
+    def without_dq_red(fn):
+        def call():
+            attn.FLAGS = NO_DQ_RED
+            try:
+                fn()
+            finally:
+                attn.FLAGS = ()
+        return call
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for batch, length, width, heads in ((8, 1024, 512, 8), (8, 512, 256, 8)):
+        hd = width // heads
+        q, k, v, g = (torch.randn(batch, length, width, generator=gen)
+                      .to(dev, torch.bfloat16) for _ in range(4))
+        o, lse = attn.flash_attention_tokens_fwd_lse(q, k, v, heads)
+        delta = attn._delta(o, g, heads)
+        dq32 = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        qh, kh, vh = (x.view(batch, length, heads, hd).transpose(1, 2).detach()
+                      .requires_grad_() for x in (q, k, v))
+        gh = g.view(batch, length, heads, hd).transpose(1, 2)
+        oh = sdpa(qh, kh, vh)
+        t = (q, k, v, g, lse, delta, heads, 1.0)
+        fused = (lambda t=t, o=(dq32, dk, dv): attn._launch_bwd("flash_tokens_bwd", o, *t))
+        cases.append((f"[{batch},{length},{width}] hd {hd}", (
+            ("fused kernel", fused),
+            ("fused kernel without dQ reductions", without_dq_red(fused)),
+            ("dq kernel", lambda t=t: attn._launch_bwd_dq(*t)),
+            ("dk/dv kernel", lambda t=t: attn._launch_bwd_dkv(*t)),
+            ("SDPA backward", lambda a=(oh, (qh, kh, vh), gh):
+                torch.autograd.grad(a[0], a[1], a[2], retain_graph=True)))))
+    readings = {}
+    for r in range(rounds):
+        for case, fns in cases:
+            for name, fn in fns:
+                ms = device_ms(fn)
+                readings.setdefault((case, name), []).append(ms)
+                print(f"round {r} backward {case} {name}: device {ms:.4f} ms", flush=True)
+    for (case, name), values in readings.items():
+        print(f"median backward {case} {name}: device {statistics.median(values):.4f} ms "
+              f"({len(values)} rounds)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
@@ -81,7 +138,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
-    _build.build_all([(attn.SOURCE, flags) for flags in VARIANTS])
+    _build.build_all([(attn.SOURCE, flags) for flags in VARIANTS]
+                     + [(attn.BWD_SOURCE, flags) for flags in ((), NO_DQ_RED)])
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -111,6 +169,8 @@ def main():
     for (case, tag), values in readings.items():
         print(f"median {case} {tag}: device {statistics.median(values):.4f} ms "
               f"({len(values)} rounds)")
+
+    backward_rounds(attn, dev, gen, args.rounds)
 
     q, k, v = (torch.randn(1, 128, 512, generator=gen).to(dev, torch.bfloat16)
                for _ in range(3))

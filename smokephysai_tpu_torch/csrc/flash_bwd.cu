@@ -1,293 +1,597 @@
 // Multi-head flash attention backward on token-major [B, L, D] tensors.
 //
-// Replaces: smokephysai_tpu/ops/pallas/attention.py, _flash_trainable_bwd
-// with the fused kernel _flash_bwd_fused_kernel (the default backward of
-// flash_attention_tokens_trainable). From q, k, v, dO, the forward's
-// logsumexp lse [B, H, L] and delta = rowsum(dO * O) [B, H, L] (a plain
-// PyTorch reduce before the launch, as it is an XLA reduce in JAX), per head:
+// Replaces, in smokephysai_tpu/ops/pallas/attention.py, _flash_trainable_bwd
+// (:366), the backward of flash_attention_tokens_trainable:
+// - fused (the default): _flash_bwd_fused_kernel (:254), launched at :412;
+// - split (SMOKEPHYS_FUSED_BWD=0): _flash_bwd_dq_kernel (:178, launched at
+//   :436) and _flash_bwd_dkv_kernel (:214, launched at :449).
+// From q, k, v, dO, the forward's logsumexp lse [B, H, L] and delta =
+// rowsum(dO * O) [B, H, L] (a plain PyTorch reduce before the launch, as it
+// is an XLA reduce in JAX), per head h (the column slice [h*hd, (h+1)*hd)):
 //   S = q k^T * scale,  P = exp(S - lse),  dP = dO v^T,
 //   dS = P * (dP - delta) * scale,
 //   dV = P^T dO,  dK = dS^T q,  dQ = dS k,
-// rounding where the TPU kernel rounds: P to v's type before P^T dO, dS to
-// q's type before dS k and dS^T q, all products accumulated in float32.
+// rounding where the TPU kernels round: P to v's type before P^T dO, dS to
+// q's type before dS k and dS^T q, every product summed in float32.
 //
 // What bounds it on an H100: operations. At the training shape (B=8,
-// L=1024, D=512, 8 heads) the five products are 10*B*H*L^2*64 = 43 GFLOP
-// on ~50 MB in and out, ~860 FLOP per byte, above the ~295 FLOP/byte
-// ridge: 0.043 ms at 989 TFLOP/s bf16.
+// L=1024, D=512, 8 heads of 64) the fused kernel's five products are
+// 10*B*H*L^2*hd = 43 GFLOP on ~50 MB in and out (~860 FLOP per byte, above
+// the ~295 FLOP/byte ridge): 0.043 ms at 989 TFLOP/s bf16. The split pair
+// recomputes S and dP in both kernels: dq 6*B*H*L^2*hd = 25.8 GFLOP (0.026
+// ms), dk/dv 8*B*H*L^2*hd = 34.4 GFLOP (0.035 ms).
 //
-// Design: the TPU kernel walks q-blocks in sequence and keeps per-(batch,
-// head) f32 dk/dv accumulators resident across those grid steps; CUDA
-// blocks run in no order, so here one block owns one (64-key tile, head,
-// batch): its dK and dV live in registers (WMMA accumulator fragments,
-// float32) while the block loops over all 64-query tiles, recomputing S
-// and dP once per tile as the fused TPU kernel does (five products, not the
-// split kernels' seven). dQ for a query tile needs every key tile, so each
-// block adds its share dS k into a float32 [B, L, D] buffer with atomicAdd
-// (the wrapper zeroes it and casts it to q's type): one launch and no
-// second pass that would recompute S and dP again, at the price of a sum
-// whose order varies from run to run. Q, K, V and dO are read in place
-// from [B, L, D] at the head's column offset (head h = columns
-// [h*hd, (h+1)*hd)), so no head-major transposes surround the call.
-// bf16: 4 warps, each owning 16 keys of the tile; S^T and dP^T tiles go
-// through shared memory for the elementwise step, P^T and dS^T are kept in
-// shared memory as bf16 for the three products that read them. float32
-// (for checking the algorithm at full precision): a scalar kernel, one
-// thread per key. wgmma and TMA are not used yet.
+// Design, bf16 (sm_90a: wgmma, TMA, mbarriers, setmaxnreg; the primitives
+// in hopper.cuh). Both kernels are persistent: one CTA per SM walks the
+// work items in order. A CTA is a producer warpgroup (one thread issues
+// every TMA load; the group gives up registers with setmaxnreg) and two
+// consumer warpgroups, each owning 64 rows of the item (wgmma's M). TMA
+// reads the [B, L, D] tensors in place through 3D tensor maps (box [1,
+// rows, hd] at column h*hd, zero fill past L), as the forward does, so no
+// transposes surround the call.
+// - The key-tile kernel, flash_bwd_kv_kernel<HD, DQ> (DQ: the fused
+//   kernel; !DQ: the split route's dk/dv kernel, the same code with the dQ
+//   step compiled out, so its dk and dv are the fused kernel's bits). An
+//   item is (128-key tile, head, batch): K and V of the tile are loaded
+//   once; 64-query tiles of Q and dO, with their 64 lse and delta values
+//   (1D bulk copies), stream through a ring of 3 stages under full and
+//   empty mbarriers. Each consumer computes S^T = K Q^T and dP^T = V dO^T
+//   for its 64 keys (wgmma m64n64k16, both operands K-major from shared
+//   memory, accumulators in registers), then P^T = exp2(S^T * scale *
+//   log2(e) - lse * log2(e)) and dS^T on those registers, rounded to bf16
+//   there: they are the register A operands of dV += P^T dO and dK += dS^T
+//   Q (wgmma m64n{hd}k16, dO and Q from shared memory as MN-major B). dK
+//   and dV stay in float32 registers across all query tiles and are
+//   written once, in k's type. The CTAs of one head start at different
+//   query tiles (key tile kt at query tile kt), so they do not add into
+//   the same dQ rows at once.
+// - dQ (DQ only): each consumer writes its dS^T (64 keys x 64 queries,
+//   bf16) to shared memory under the 128-byte swizzle, into one of two
+//   buffers by the tile's parity; after a named barrier over both
+//   consumers, one of them computes the tile's dQ = dS K over all 128 keys
+//   (wgmma with dS as MN-major A and K as MN-major B) and adds it into the
+//   zeroed float32 [B, L, D] dQ buffer by vector reductions
+//   (red.global.add.v4.f32: four columns per thread after one exchange
+//   within the quad). The two take turns by the tile's parity:
+//   the turn is a template parameter of each consumer's loop, chosen once,
+//   so no branch on the warpgroup crosses a product. One share per 128 keys
+//   goes to the buffer (8 per dQ value at L = 1024), half of what one share
+//   per warpgroup sent. The order of the sum still varies from run to run.
+// - The query-tile kernel, flash_bwd_dq_kernel<HD> (the split route's dq,
+//   no atomics: its dq is the same bits on every run, and each batch
+//   element's is that of a call on it alone). An item is (128-query tile,
+//   head, batch): Q and dO are loaded once, tiles of 128 keys (64 at
+//   head_dim 128) of K and V stream through the ring. Each consumer
+//   computes S = Q K^T and dP = dO V^T for its 64 queries (wgmma, K-major,
+//   as the forward's S), P and dS on those registers with the row's lse
+//   and delta held in registers, dS rounded to bf16 as the register A
+//   operand of dQ += dS K (K as MN-major B). dQ stays in float32
+//   registers and is written once, in q's type.
+// - Tails (L % 128 == 64). Only a 128-row tile can reach past L. Its rows
+//   there are TMA's zero fill: zero keys give S = dP = 0 and a dS whose
+//   product with the zero K rows adds nothing, and a consumer whose 64 rows
+//   lie past L computes on the fill and stores nothing. lse and delta past
+//   L are read as 0 (never the next batch element's), so P and dS stay
+//   finite there.
+// - Each consumer waits out its products before its elementwise step and
+//   again before the next tile; the other consumer's products fill the
+//   tensor cores meanwhile. There is no divergent branch in a consumer's
+//   loop (predicated arrivals, stores and reductions), which ptxas would
+//   answer by serialising every wgmma (C7513, C7518 in -Xptxas -v).
+// What the design does about the WMMA kernels' limits: S^T, dP^T, P^T and
+// dS^T never go through shared memory, except dS^T for dQ (once per query
+// tile); dQ's one scalar atomicAdd per value and block became one vector
+// reduction per four values and 128 keys; TMA loads run ahead of the
+// products in the ring instead of between two __syncthreads; a CTA is three
+// warpgroups, the consumers at up to 240 registers (setmaxnreg), and reads
+// each Q and dO tile once per 128 keys, not once per 64.
 //
 // Head dim: a template parameter, instantiated for 16, 32, 64 and 128 (the
-// launcher picks it from D / heads). The tiles' row pitch, the shared
-// memory, the dK/dV fragments and the WMMA loops over the head dim scale
-// with it; the 64-key and 64-query tiles do not. At head_dim 64 the code
-// computes what it did when 64 was built in. Shared memory per block, bf16:
-// 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 8 * 16 * L4 * 4 + 2 * 64 * 72 * 2 +
-// 64 * L4 * 4 bytes with L4 = max(64, hd) + 4 (106 KB at 64, 186 KB at 128);
-// float32: (4 * 64 * (hd + 1) + 64 * 65) * 4 (81 KB at 64, 145 KB at 128).
+// launcher picks it from D / heads). Shared memory per CTA, bf16: key-tile
+// kernel K, V 2 * 128 * hd * 2 + 3 stages of Q, dO (2 * 64 * hd * 2) and
+// lse, delta (512), + two dS^T buffers of 16 KB with DQ (fused: 55 KB at
+// 16, 75 KB at 32, 115 KB at 64, 195 KB at 128; dk/dv 32 KB less);
+// query-tile kernel Q, dO 2 * 128 * hd * 2 + 3 stages of K, V (2 * BK * hd
+// * 2): 33 KB at 16, 65 KB at 32, 129 KB at 64, 161 KB at 128. Registers
+// per consumer thread: dK and dV hd/2 floats each, S^T and dP^T 32 each,
+// P^T and dS^T 16 each, a tile's dQ hd/2. ptxas (CUDA 12.9) spills only in
+// the fused kernel at head_dim 128: 344 bytes of spill stores and 524 of
+// loads per thread (192-byte stack frame); the dk/dv kernel there and
+// every other instantiation spill nothing.
+// Tried on the card and dropped, no faster beyond the spread between calls
+// at any head dim: issuing the next tile's S^T and dP^T with this tile's
+// dV and dK (one wait per tile; it ran out of registers at head_dim 128,
+// ptxas C7512); K and V of the item held as register A operands at
+// head_dim <= 64; and, at head_dim 128, dP^T issued only after P^T was
+// formed, or the tile's dQ computed in two 64-column halves (the spill
+// stayed).
 //
-// The split pair (the JAX package's SMOKEPHYS_FUSED_BWD=0 route:
-// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel, both on token-major
-// [B, L, D] with the heads looped inside, grid (batch, q-block)) is two
-// kernels with no atomics, so its gradients are the same bits on every run
-// and each batch element's are those of a call on it alone:
-// - dq: one block per (64-query tile, head, batch). Each warp keeps its 16
-//   query rows of Q and dO as WMMA A fragments, loops over all 64-key
-//   tiles, recomputes S = Q K^T and dP = dO V^T, forms dS (to q's type) and
-//   accumulates dQ += dS K in float32 fragments; it writes dq once, in q's
-//   type. Three products: 6*B*H*L^2*hd = 25.8 GFLOP at the training shape,
-//   0.026 ms at 989 TFLOP/s (on ~42 MB, 0.013 ms at 3.35 TB/s).
-// - dkv: the fused kernel above with its dQ step compiled out (template
-//   flag DQ = false; the fused instantiation, DQ = true, is the code it
-//   was). Four products: 8*B*H*L^2*hd = 34.4 GFLOP, 0.035 ms (~50 MB).
-// Both are bound by operations, and both recompute S and dP: seven
-// products against the fused kernel's five. What limits them as written is
-// what limits the fused kernel: WMMA (mma.sync) rather than wgmma, S and
-// dP staged through shared memory for the elementwise step, and 4 warps
-// per block. Shared memory of the dq kernel per block, bf16:
-// 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 8 * 16 * L4 * 4 + 64 * 72 * 2 bytes
-// (81 KB at 64, 147 KB at 128); float32: 4 * 64 * (hd + 1) * 4 (67 KB at
-// 64, 132 KB at 128).
+// float32 (for checking the algorithm at full precision): scalar kernels,
+// one thread per key (fused and dk/dv) or per query (dq) of a 64-row tile,
+// the fused one adding dQ with one atomicAdd per value.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-using namespace nvcuda;
+constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int BT = 64;       // keys per block and queries per tile
-constexpr int WARPS = 4;     // bf16 kernel: 16 keys per warp
-constexpr int LDP = BT + 8;  // bf16 P^T / dS^T row pitch
-constexpr size_t VEC_BYTES = BT * sizeof(float);
-constexpr size_t PT_BYTES = BT * LDP * sizeof(__nv_bfloat16);
+// ---------------------------------------------------------------- bf16 (Hopper)
 
-// the tile geometry of head dim HD
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int STAGES = 3;
+
+// a 32-bit store to shared memory
+__device__ __forceinline__ void st_shared_b32(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(dst), "r"(v) : "memory");
+}
+
+// FLASH_PROBE_NO_DQ_RED makes a measurement-only build with a wrong dq
+// (scripts/flash_probe.py): the fused kernel's dQ reductions are not issued
+#ifdef FLASH_PROBE_NO_DQ_RED
+constexpr bool RED = false;
+#else
+constexpr bool RED = true;
+#endif
+
+// adds four floats to 16-byte aligned global memory where `pred` holds
+// (predicated, as mbar_arrive_if)
+__device__ __forceinline__ void red_add_v4_if(float* dst, float a, float b, float c,
+                                              float d, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n}\n"
+      :: "l"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"((int)pred) : "memory");
+}
+
+// float32 [64 x HD] accumulator rows r0, r1 (the thread's fragment rows)
+// to bf16 at `dst` (row 0 of the warpgroup's 64, column 2 * quad), stored
+// where `pred` holds
 template <int HD>
-struct Geo {
-  static constexpr int LDT = HD + 8;  // bf16 tile row pitch (elements)
-  // float tile row pitch: S^T and dP^T (64 queries wide), dK, dV and dQ
-  // (HD wide)
-  static constexpr int LDS = (HD > BT ? HD : BT) + 4;
-  static constexpr size_t TILE_BYTES = BT * LDT * sizeof(__nv_bfloat16);
-  static constexpr size_t WS_BYTES = 16 * LDS * sizeof(float);  // one warp's f32 tile
-  static constexpr size_t DQ_BYTES = BT * LDS * sizeof(float);
-  // sK sV sQ sdO | lse delta | S^T dP^T per warp | P^T dS^T | dQ staging
-  static constexpr size_t SMEM_BF16 = 4 * TILE_BYTES + 2 * VEC_BYTES +
-                                      2 * WARPS * WS_BYTES + 2 * PT_BYTES + DQ_BYTES;
-  // float32 kernel: K V Q dO rows of HD + 1 floats, dS rows of BT + 1
-  static constexpr int P32 = HD + 1;
-  static constexpr int PDS = BT + 1;
-  static constexpr size_t SMEM_F32 = (4 * BT * P32 + BT * PDS) * sizeof(float);
-  // the dkv kernels leave out their last region: dQ staging, float32 dS
-  static constexpr size_t SMEM_DKV_BF16 = SMEM_BF16 - DQ_BYTES;
-  static constexpr size_t SMEM_DKV_F32 = SMEM_F32 - BT * PDS * sizeof(float);
-  // dq kernel: sQ sdO sK sV | lse delta | S dP per warp | dS
-  static constexpr size_t SMEM_DQ_BF16 =
-      4 * TILE_BYTES + 2 * VEC_BYTES + 2 * WARPS * WS_BYTES + PT_BYTES;
-  static constexpr size_t SMEM_DQ_F32 = 4 * BT * P32 * sizeof(float);
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[HD / 2],
+                                           int r0, int D, bool pred) {
+  __nv_bfloat16* d0 = dst + (size_t)r0 * D;
+  __nv_bfloat16* d1 = d0 + (size_t)8 * D;
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    st_b32_if(d0 + 8 * i, pack_bf16(acc[4 * i], acc[4 * i + 1]), pred);
+    st_b32_if(d1 + 8 * i, pack_bf16(acc[4 * i + 2], acc[4 * i + 3]), pred);
+  }
+}
+
+// ---------------------------------------------------------------- key-tile kernel
+
+constexpr int KV_ROWS = 128;  // keys per work item: 64 per consumer warpgroup
+constexpr int Q_ROWS = 64;    // queries per streamed tile
+
+template <int HD, bool DQ>
+struct KvCfg {
+  static constexpr int KV_BYTES = KV_ROWS * HD * 2;  // the K or the V tile
+  static constexpr int QT_BYTES = Q_ROWS * HD * 2;   // a Q or a dO tile
+  static constexpr int STAGE_BYTES = 2 * QT_BYTES;   // Q, then dO
+  static constexpr int DS_OFFSET = 2 * KV_BYTES + STAGES * STAGE_BYTES;
+  // dS^T of both warpgroups, bf16, twice (the tile's index in the item, mod 2)
+  static constexpr int DS_BUF = KV_ROWS * Q_ROWS * 2;
+  static constexpr int DS_BYTES = DQ ? 2 * DS_BUF : 0;
+  static constexpr int VEC_BYTES = 2 * Q_ROWS * 4;   // a stage's lse, then delta
+  static constexpr int VEC_OFFSET = DS_OFFSET + DS_BYTES;
+  static constexpr int BAR_OFFSET = VEC_OFFSET + STAGES * VEC_BYTES;
+  static constexpr int NBARS = 2 + 2 * STAGES;
+  // + 1024: the dynamic shared memory is aligned up to the 128-byte
+  // swizzle's 1024-byte period inside the kernel
+  static constexpr int SMEM = BAR_OFFSET + NBARS * 8 + 1024;
+};
+
+template <int HD, bool DQ>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* dq, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int L, int D, int H, int nkt,
+                    int items, float scale, float scale_log2) {
+  using C = KvCfg<HD, DQ>;
+  using T = HeadTile<HD>;
+  constexpr int ROW = T::ROW, BOX = T::BOX;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle patterns repeat every 1024 bytes: align the tiles to that
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + C::KV_BYTES;
+  const uint32_t sQ = base + 2 * C::KV_BYTES;  // stage s at + s * STAGE_BYTES, dO at + QT_BYTES
+  const uint32_t sDS = base + C::DS_OFFSET;
+  const uint32_t sVec = base + C::VEC_OFFSET;  // stage s at + s * VEC_BYTES
+  const uint32_t bars = base + C::BAR_OFFSET;
+  const uint32_t full_kv = bars, empty_kv = bars + 8;
+  const uint32_t full = bars + 16, empty = full + 8 * STAGES;  // stage s at + 8 * s
+  const int nq = L / Q_ROWS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 8);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;  // 0: producer, 1 and 2: consumers
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0, kvph = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, kvph ^= 1) {
+        const int kt = item % nkt, h = (item / nkt) % H, b = item / (nkt * H);
+        mbar_wait(empty_kv, kvph ^ 1);
+        mbar_expect_tx(full_kv, 2 * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < T::NBOX; ++c) {
+          tma_load_3d(sK + c * KV_ROWS * ROW, &tm_k, full_kv, h * HD + c * BOX, kt * KV_ROWS, b);
+          tma_load_3d(sV + c * KV_ROWS * ROW, &tm_v, full_kv, h * HD + c * BOX, kt * KV_ROWS, b);
+        }
+        const float* vl = lse + ((size_t)b * H + h) * L;
+        const float* vd = delta + ((size_t)b * H + h) * L;
+        int j = kt % nq;
+        for (int n = 0; n < nq; ++n) {
+          const uint32_t q_s = sQ + s * C::STAGE_BYTES, vec_s = sVec + s * C::VEC_BYTES;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, C::STAGE_BYTES + C::VEC_BYTES);
+#pragma unroll
+          for (int c = 0; c < T::NBOX; ++c) {
+            tma_load_3d(q_s + c * Q_ROWS * ROW, &tm_q, full + 8 * s, h * HD + c * BOX,
+                        j * Q_ROWS, b);
+            tma_load_3d(q_s + C::QT_BYTES + c * Q_ROWS * ROW, &tm_do, full + 8 * s,
+                        h * HD + c * BOX, j * Q_ROWS, b);
+          }
+          bulk_load(vec_s, vl + j * Q_ROWS, Q_ROWS * 4, full + 8 * s);
+          bulk_load(vec_s + Q_ROWS * 4, vd + j * Q_ROWS, Q_ROWS * 4, full + 8 * s);
+          if (++j == nq) j = 0;
+          if (++s == STAGES) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int cw = wg - 1;  // this warpgroup's 64 keys of the 128-key tile
+    const int t = threadIdx.x % 128, lane = t % 32, quad = lane & 3;
+    // this thread's two fragment rows within the warpgroup's 64
+    const int r0 = (t / 32) * 16 + lane / 4, r1 = r0 + 8;
+    // K-major: the warpgroup's keys of K and V (A of S^T and dP^T), stage
+    // 0's Q and dO (their B)
+    const uint64_t dk_a = make_desc(sK + cw * 64 * ROW, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t dv_a = make_desc(sV + cw * 64 * ROW, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t dq_b = make_desc(sQ, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t ddo_b = make_desc(sQ + C::QT_BYTES, 16, 8 * ROW, T::LAYOUT);
+    // MN-major: stage 0's Q and dO as the B of dK and dV
+    const uint64_t dq_mn = make_desc(sQ, Q_ROWS * ROW, 8 * ROW, T::LAYOUT);
+    const uint64_t ddo_mn = make_desc(sQ + C::QT_BYTES, Q_ROWS * ROW, 8 * ROW, T::LAYOUT);
+    constexpr uint64_t STAGE = C::STAGE_BYTES >> 4;  // a stage's step in the descriptor
+    // dQ = dS K over the tile's 128 keys: dS^T of both warpgroups (a
+    // 128-byte row of 64 queries per key; buffer 1 at + DS_BUF) as
+    // MN-major A, the whole K tile as MN-major B
+    const uint64_t dds_a = make_desc(sDS, 64 * 128, 8 * 128, 1);
+    const uint64_t dk_mn = make_desc(sK, KV_ROWS * ROW, 8 * ROW, T::LAYOUT);
+    const uint32_t ds_rows = sDS + cw * 64 * 128;  // this warpgroup's rows of dS^T
+    const bool leader = lane == 0;  // arrives on the empty barriers for its warp
+    const bool odd = quad & 1;      // the dQ reduction's role within the quad
+    // generic pointer to stage 0's lse (delta at + Q_ROWS)
+    const float* vec0 = reinterpret_cast<const float*>(smem_raw + (sVec - raw));
+
+    // The consumer loop. With DQ the two warpgroups take turns at dQ: the
+    // one whose TURN is the parity of the query tile's index in the item
+    // computes the tile's whole dQ. TURN is a template parameter, chosen
+    // once below, so no branch on the warpgroup crosses a product.
+    auto consume = [&](auto turn) {
+      constexpr int TURN = decltype(turn)::value;
+      int s = 0;
+      uint32_t ph = 0, kvph = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, kvph ^= 1) {
+        const int kt = item % nkt, h = (item / nkt) % H, b = item / (nkt * H);
+        const int k0 = kt * KV_ROWS + cw * 64;  // the warpgroup's first key
+        // past L (L % 128 == 64) the warpgroup's K and V rows are TMA's zero
+        // fill: it runs the same code (no branch) and stores nothing
+        const bool active = k0 < L;
+        float gk[HD / 2], gv[HD / 2];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) gk[i] = gv[i] = 0.0f;
+        mbar_wait(full_kv, kvph);
+        int j = kt % nq;
+
+        // one query tile; BUF (the tile's index in the item, mod 2) picks
+        // the dS^T buffer, and with DQ whether this warpgroup computes dQ
+        auto tile = [&](auto buf) {
+          constexpr int BUF = decltype(buf)::value;
+          // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries)
+          float st[Q_ROWS / 2], dpt[Q_ROWS / 2];
+          mbar_wait(full + 8 * s, ph);
+          wgmma_fence();
+          issue_abt<HD, Q_ROWS, KV_ROWS, Q_ROWS>(st, dk_a, dq_b + s * STAGE);
+          issue_abt<HD, Q_ROWS, KV_ROWS, Q_ROWS>(dpt, dv_a, ddo_b + s * STAGE);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+
+          // P^T and dS^T in the accumulator layout: st[4g + e] is key row r0
+          // (e < 2) or r1, query 8g + 2 quad + (e & 1); the pair of k-step
+          // g/2, register 2 (g % 2) + (row r1) of the A operand
+          uint32_t pp[Q_ROWS / 16][4], pds[Q_ROWS / 16][4];
+          const float* vl = vec0 + s * (C::VEC_BYTES / 4);
+#pragma unroll
+          for (int g = 0; g < Q_ROWS / 8; ++g) {
+            const float2 l2 = *reinterpret_cast<const float2*>(vl + 8 * g + 2 * quad);
+            const float2 d2 = *reinterpret_cast<const float2*>(vl + Q_ROWS + 8 * g + 2 * quad);
+            const float la = l2.x * LOG2E, lb = l2.y * LOG2E;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int i = 4 * g + 2 * rr;
+              const float p0 = ex2(fmaf(st[i], scale_log2, -la));
+              const float p1 = ex2(fmaf(st[i + 1], scale_log2, -lb));
+              pp[g / 2][2 * (g % 2) + rr] = pack_bf16(p0, p1);
+              pds[g / 2][2 * (g % 2) + rr] = pack_bf16(p0 * (dpt[i] - d2.x) * scale,
+                                                       p1 * (dpt[i + 1] - d2.y) * scale);
+            }
+          }
+          if constexpr (DQ) {
+            // dS^T to shared memory under the 128-byte swizzle: the 16-byte
+            // chunk g of row r sits at chunk g ^ (r & 7), and r & 7 = lane / 4
+#pragma unroll
+            for (int g = 0; g < Q_ROWS / 8; ++g)
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr)
+                st_shared_b32(ds_rows + BUF * C::DS_BUF + (rr ? r1 : r0) * 128 +
+                                  ((g ^ (lane >> 2)) << 4) + quad * 4,
+                              pds[g / 2][2 * (g % 2) + rr]);
+            fence_proxy_async();
+          }
+
+          // dV += P^T dO and dK += dS^T Q over the tile's 64 queries
+          wgmma_fence();
+          issue_pv<HD, Q_ROWS / 16>(gv, pp, ddo_mn + s * STAGE);
+          issue_pv<HD, Q_ROWS / 16>(gk, pds, dq_mn + s * STAGE);
+          wgmma_commit();
+          if constexpr (DQ) {
+            // both warpgroups' dS^T of this tile are in shared memory, and
+            // the previous tile's dQ is done reading the other buffer, which
+            // the next tile writes
+            bar_sync(1, 256);
+          }
+          wgmma_wait<0>();
+          fence_regs(gk);
+          fence_regs(gv);
+          mbar_arrive_if(empty + 8 * s, leader);
+          if constexpr (DQ && BUF == TURN) {
+            // the tile's dQ (64 queries x HD) = dS K over its 128 keys
+            float gq[HD / 2];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KV_ROWS / 16; ++kk)
+              wgmma_ss<HD, 1, 1>(gq, dds_a + ((BUF * C::DS_BUF + kk * 16 * 128) >> 4),
+                                 dk_mn + ((kk * 16 * ROW) >> 4), kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(gq);
+            // four columns per thread: the even lane of a quad pair takes
+            // row r0's four, the odd one row r1's, after swapping a pair each
+            float* dst = dq + ((size_t)b * L + j * Q_ROWS + (odd ? r1 : r0)) * D + h * HD +
+                         2 * (quad & 2);
+#pragma unroll
+            for (int i = 0; i < HD / 8; ++i) {
+              const float sx = odd ? gq[4 * i] : gq[4 * i + 2];
+              const float sy = odd ? gq[4 * i + 1] : gq[4 * i + 3];
+              const float rx = __shfl_xor_sync(0xffffffffu, sx, 1);
+              const float ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+              red_add_v4_if(dst + 8 * i, odd ? rx : gq[4 * i], odd ? ry : gq[4 * i + 1],
+                            odd ? gq[4 * i + 2] : rx, odd ? gq[4 * i + 3] : ry, RED);
+            }
+          }
+          if (++j == nq) j = 0;
+          if (++s == STAGES) { s = 0; ph ^= 1; }
+        };
+        for (int n = 0; n < nq; n += 2) {
+          tile(std::integral_constant<int, 0>{});
+          if (n + 1 < nq) tile(std::integral_constant<int, 1>{});
+        }
+        // the item's last dQ is done with its buffer (with an odd count of
+        // tiles, the buffer the next item's first tile writes) and with K
+        if constexpr (DQ) bar_sync(1, 256);
+        mbar_arrive_if(empty_kv, leader);
+        const size_t at = ((size_t)b * L + k0) * D + h * HD + 2 * quad;
+        store_rows<HD>(dk + at, gk, r0, D, active);
+        store_rows<HD>(dv + at, gv, r0, D, active);
+      }
+    };
+    if (!DQ || cw == 0) consume(std::integral_constant<int, 0>{});
+    else consume(std::integral_constant<int, 1>{});
+  }
+}
+
+// ---------------------------------------------------------------- query-tile kernel
+
+constexpr int DQ_ROWS = 128;  // queries per work item: 64 per consumer warpgroup
+
+template <int HD>
+struct DqCfg {
+  static constexpr int BK = HD == 128 ? 64 : 128;  // keys per streamed tile
+  static constexpr int Q_BYTES = DQ_ROWS * HD * 2;  // the Q or the dO tile
+  static constexpr int KV_BYTES = BK * HD * 2;      // a K or a V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K, then V
+  static constexpr int BAR_OFFSET = 2 * Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int NBARS = 2 + 2 * STAGES;
+  static constexpr int SMEM = BAR_OFFSET + NBARS * 8 + 1024;
 };
 
 template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int D) {
-  // 64 rows x HD bf16 in 16-byte chunks
-  constexpr int CHUNKS = HD / 8;
-  for (int i = threadIdx.x; i < BT * CHUNKS; i += blockDim.x) {
-    int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    *reinterpret_cast<uint4*>(dst + r * Geo<HD>::LDT + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int L, int D, int H, int nq, int items,
+                    float scale, float scale_log2) {
+  using C = DqCfg<HD>;
+  using T = HeadTile<HD>;
+  constexpr int ROW = T::ROW, BOX = T::BOX, BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + C::Q_BYTES;
+  const uint32_t sK = base + 2 * C::Q_BYTES;  // stage s at + s * STAGE_BYTES, V at + KV_BYTES
+  const uint32_t bars = base + C::BAR_OFFSET;
+  const uint32_t full_q = bars, empty_q = bars + 8;
+  const uint32_t full = bars + 16, empty = full + 8 * STAGES;  // stage s at + 8 * s
+  const int nk = (L + BK - 1) / BK;  // key tiles per item
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 8);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-// DQ = false: the dkv kernel (no dQ step, dq unused)
-template <int HD, bool DQ>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* dq,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int L, int D,
-                      float scale) {
-  using G = Geo<HD>;
-  constexpr int LDT = G::LDT, LDS = G::LDS;
-  constexpr size_t TILE_BYTES = G::TILE_BYTES, WS_BYTES = G::WS_BYTES;
-  constexpr int HALF = HD / 2;  // dK / dV columns per lane
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  __nv_bfloat16* sdO = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  float* sLse = reinterpret_cast<float*>(p); p += VEC_BYTES;
-  float* sDelta = reinterpret_cast<float*>(p); p += VEC_BYTES;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sS = reinterpret_cast<float*>(p + warp * WS_BYTES);
-  float* sDP = reinterpret_cast<float*>(p + (WARPS + warp) * WS_BYTES);
-  p += 2 * WARPS * WS_BYTES;
-  __nv_bfloat16* sPt = reinterpret_cast<__nv_bfloat16*>(p); p += PT_BYTES;
-  __nv_bfloat16* sdSt = reinterpret_cast<__nv_bfloat16*>(p); p += PT_BYTES;
-  float* sDQ = reinterpret_cast<float*>(p);
-
-  const int H = gridDim.y;
-  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
-  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
-  const int k0 = blockIdx.x * BT;
-  load_tile<HD>(sK, k + base + (size_t)k0 * D, D);
-  load_tile<HD>(sV, v + base + (size_t)k0 * D, D);
-
-  // the warp's 16 keys: rows w*16.. of the K and V tiles, as A fragments
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fk[HD / 16], fv[HD / 16];
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fat;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fbt;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc, fdk[HD / 16], fdv[HD / 16];
   __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(fk[kk], sK + warp * 16 * LDT + kk * 16, LDT);
-    wmma::load_matrix_sync(fv[kk], sV + warp * 16 * LDT + kk * 16, LDT);
-    wmma::fill_fragment(fdk[kk], 0.0f);
-    wmma::fill_fragment(fdv[kk], 0.0f);
-  }
 
-  // lane owns key row r of the warp's 16 and query columns [half*32, +32)
-  const int r = lane >> 1, half = lane & 1;
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile<HD>(sQ, q + base + (size_t)q0 * D, D);
-    load_tile<HD>(sdO, dout + base + (size_t)q0 * D, D);
-    for (int i = threadIdx.x; i < BT; i += blockDim.x) {
-      sLse[i] = lse[row_base + q0 + i];
-      sDelta[i] = delta[row_base + q0 + i];
-    }
-    __syncthreads();
+  const int wg = threadIdx.x / 128;  // 0: producer, 1 and 2: consumers
 
-    // S^T = K_w Q^T and dP^T = V_w dO^T (16 keys x 64 queries)
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0, qph = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, qph ^= 1) {
+        const int qt = item % nq, h = (item / nq) % H, b = item / (nq * H);
+        mbar_wait(empty_q, qph ^ 1);
+        mbar_expect_tx(full_q, 2 * C::Q_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < BT / 16; ++nt) {
-      wmma::fill_fragment(fc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::load_matrix_sync(fbt, sQ + nt * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(fc, fk[kk], fbt, fc);
-      }
-      wmma::store_matrix_sync(sS + nt * 16, fc, LDS, wmma::mem_row_major);
-      wmma::fill_fragment(fc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::load_matrix_sync(fbt, sdO + nt * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(fc, fv[kk], fbt, fc);
-      }
-      wmma::store_matrix_sync(sDP + nt * 16, fc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // P = exp(S * scale - lse), dS = P (dP - delta) scale, both to bf16
-    {
-      const float* srow = sS + r * LDS + half * 32;
-      const float* dprow = sDP + r * LDS + half * 32;
-      __nv_bfloat16* prow = sPt + (warp * 16 + r) * LDP + half * 32;
-      __nv_bfloat16* dsrow = sdSt + (warp * 16 + r) * LDP + half * 32;
-#pragma unroll
-      for (int c = 0; c < 32; c += 2) {
-        const int j = half * 32 + c;
-        float s0 = srow[c] * scale, s1 = srow[c + 1] * scale;
-        float p0 = expf(s0 - sLse[j]), p1 = expf(s1 - sLse[j + 1]);
-        float ds0 = p0 * (dprow[c] - sDelta[j]) * scale;
-        float ds1 = p1 * (dprow[c + 1] - sDelta[j + 1]) * scale;
-        *reinterpret_cast<__nv_bfloat162*>(prow + c) = __floats2bfloat162_rn(p0, p1);
-        *reinterpret_cast<__nv_bfloat162*>(dsrow + c) = __floats2bfloat162_rn(ds0, ds1);
-      }
-    }
-    __syncwarp();
-
-    // dV_w += P^T_w dO and dK_w += dS^T_w Q (16 keys x HD dims)
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < HD / 16; ++nt) {
-        wmma::load_matrix_sync(fa, sPt + warp * 16 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, sdO + kk * 16 * LDT + nt * 16, LDT);
-        wmma::mma_sync(fdv[nt], fa, fb, fdv[nt]);
-        wmma::load_matrix_sync(fa, sdSt + warp * 16 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, sQ + kk * 16 * LDT + nt * 16, LDT);
-        wmma::mma_sync(fdk[nt], fa, fb, fdk[nt]);
-      }
-    }
-    if constexpr (DQ) {
-      __syncthreads();  // dS^T of all four warps is in shared memory
-
-      // dQ rows w*16.. of this query tile = dS (16 x 64 keys) K (64 x HD),
-      // with dS read as the transpose of dS^T
-#pragma unroll
-      for (int nt = 0; nt < HD / 16; ++nt) {
-        wmma::fill_fragment(fc, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < BT / 16; ++kk) {
-          wmma::load_matrix_sync(fat, sdSt + kk * 16 * LDP + warp * 16, LDP);
-          wmma::load_matrix_sync(fb, sK + kk * 16 * LDT + nt * 16, LDT);
-          wmma::mma_sync(fc, fat, fb, fc);
+        for (int c = 0; c < T::NBOX; ++c) {
+          tma_load_3d(sQ + c * DQ_ROWS * ROW, &tm_q, full_q, h * HD + c * BOX, qt * DQ_ROWS, b);
+          tma_load_3d(sdO + c * DQ_ROWS * ROW, &tm_do, full_q, h * HD + c * BOX,
+                      qt * DQ_ROWS, b);
         }
-        wmma::store_matrix_sync(sDQ + warp * 16 * LDS + nt * 16, fc, LDS,
-                                wmma::mem_row_major);
-      }
-      __syncwarp();
-      float* dq_rows = dq + base + (size_t)(q0 + warp * 16) * D;
-      for (int i = lane; i < 16 * HD; i += 32) {
-        const int rr = i / HD, cc = i % HD;
-        atomicAdd(dq_rows + (size_t)rr * D + cc, sDQ[(warp * 16 + rr) * LDS + cc]);
+        for (int j = 0; j < nk; ++j) {
+          const uint32_t k_s = sK + s * C::STAGE_BYTES;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, C::STAGE_BYTES);
+#pragma unroll
+          for (int c = 0; c < T::NBOX; ++c) {
+            tma_load_3d(k_s + c * BK * ROW, &tm_k, full + 8 * s, h * HD + c * BOX, j * BK, b);
+            tma_load_3d(k_s + C::KV_BYTES + c * BK * ROW, &tm_v, full + 8 * s,
+                        h * HD + c * BOX, j * BK, b);
+          }
+          if (++s == STAGES) { s = 0; ph ^= 1; }
+        }
       }
     }
-  }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int cw = wg - 1;  // this warpgroup's 64 queries of the 128-query tile
+    const int t = threadIdx.x % 128, lane = t % 32, quad = lane & 3;
+    // this thread's two fragment rows within the warpgroup's 64
+    const int r0 = (t / 32) * 16 + lane / 4, r1 = r0 + 8;
+    // K-major: the warpgroup's rows of Q and dO (A of S and dP), stage 0's
+    // K and V (their B); MN-major: stage 0's K as the B of dQ
+    const uint64_t dq_a = make_desc(sQ + cw * 64 * ROW, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t ddo_a = make_desc(sdO + cw * 64 * ROW, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t dk_b = make_desc(sK, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t dv_b = make_desc(sK + C::KV_BYTES, 16, 8 * ROW, T::LAYOUT);
+    const uint64_t dk_mn = make_desc(sK, BK * ROW, 8 * ROW, T::LAYOUT);
+    constexpr uint64_t STAGE = C::STAGE_BYTES >> 4;  // a stage's step in the descriptor
+    const bool leader = lane == 0;  // arrives on the empty barriers for its warp
+    int s = 0;
+    uint32_t ph = 0, qph = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, qph ^= 1) {
+      const int qt = item % nq, h = (item / nq) % H, b = item / (nq * H);
+      const int q0 = qt * DQ_ROWS + cw * 64;  // the warpgroup's first query
+      // past L (L % 128 == 64) the warpgroup's Q and dO rows are TMA's zero
+      // fill: it runs the same code (no branch), with lse and delta 0 there,
+      // and stores nothing
+      const bool active = q0 < L;
+      const size_t row_base = ((size_t)b * H + h) * L;
+      const int qa = min(q0 + r0, L - 1), qb = min(q0 + r1, L - 1);  // in range
+      const float xa = lse[row_base + qa], xb = lse[row_base + qb];
+      const float ya = delta[row_base + qa], yb = delta[row_base + qb];
+      const float la = active ? xa * LOG2E : 0.0f, lb = active ? xb * LOG2E : 0.0f;
+      const float da = active ? ya : 0.0f, db = active ? yb : 0.0f;
+      float acc[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+      mbar_wait(full_q, qph);
+      for (int j = 0; j < nk; ++j) {
+        // S = Q K^T and dP = dO V^T (64 queries x BK keys)
+        float sc[BK / 2], dpc[BK / 2];
+        mbar_wait(full + 8 * s, ph);
+        wgmma_fence();
+        issue_abt<HD, BK, DQ_ROWS, BK>(sc, dq_a, dk_b + s * STAGE);
+        issue_abt<HD, BK, DQ_ROWS, BK>(dpc, ddo_a, dv_b + s * STAGE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dpc);
 
-  // dK and dV of the warp's 16 keys, through its f32 tile, cast to bf16
-  __nv_bfloat16* outs[2] = {dk, dv};
+        // dS in the accumulator layout: sc[8kk + 2e] is query row r0 (e even)
+        // or r1, keys 16kk + 8 (e / 2) + 2 quad + {0, 1}: register e of k-step kk
+        uint32_t pds[BK / 16][4];
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
-    __syncwarp();
+        for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int nt = 0; nt < HD / 16; ++nt)
-      wmma::store_matrix_sync(sS + nt * 16, which == 0 ? fdk[nt] : fdv[nt],
-                              LDS, wmma::mem_row_major);
-    __syncwarp();
-    __nv_bfloat16* dst = outs[which] + base + (size_t)(k0 + warp * 16 + r) * D + half * HALF;
-    const float* src = sS + r * LDS + half * HALF;
-#pragma unroll
-    for (int c = 0; c < HALF; c += 8) {
-      uint4 packed;
-      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        p2[t] = __floats2bfloat162_rn(src[c + 2 * t], src[c + 2 * t + 1]);
-      *reinterpret_cast<uint4*>(dst + c) = packed;
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * kk + 2 * e;
+            const float l = e % 2 ? lb : la, dl = e % 2 ? db : da;
+            const float p0 = ex2(fmaf(sc[i], scale_log2, -l));
+            const float p1 = ex2(fmaf(sc[i + 1], scale_log2, -l));
+            pds[kk][e] = pack_bf16(p0 * (dpc[i] - dl) * scale, p1 * (dpc[i + 1] - dl) * scale);
+          }
+
+        // dQ += dS K over the tile's keys
+        wgmma_fence();
+        issue_pv<HD, BK / 16>(acc, pds, dk_mn + s * STAGE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive_if(empty + 8 * s, leader);
+        mbar_arrive_if(empty_q, leader && j == nk - 1);
+        if (++s == STAGES) { s = 0; ph ^= 1; }
+      }
+      store_rows<HD>(dq + ((size_t)b * L + q0) * D + h * HD + 2 * quad, acc, r0, D, active);
     }
   }
 }
+
+// ---------------------------------------------------------------- float32
+
+constexpr int BT = 64;  // keys per block and queries per tile
+
+// the float32 kernels' shared memory
+template <int HD>
+struct Geo {
+  // K V Q dO rows of HD + 1 floats, dS rows of BT + 1
+  static constexpr int P32 = HD + 1;
+  static constexpr int PDS = BT + 1;
+  static constexpr size_t SMEM_F32 = (4 * BT * P32 + BT * PDS) * sizeof(float);
+  // the dkv kernel leaves out the float32 dS
+  static constexpr size_t SMEM_DKV_F32 = SMEM_F32 - BT * PDS * sizeof(float);
+  static constexpr size_t SMEM_DQ_F32 = 4 * BT * P32 * sizeof(float);
+};
 
 // float32: one thread per key of the block's 64-key tile (DQ = false: the
 // dkv kernel)
@@ -363,138 +667,6 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dq: one block per (64-query tile, head, batch); each warp owns 16 query
-// rows and keeps their Q and dO as A fragments and their dQ in float32
-// accumulator fragments across all key tiles
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int L, int D,
-                         float scale) {
-  using G = Geo<HD>;
-  constexpr int LDT = G::LDT, LDS = G::LDS;
-  constexpr size_t TILE_BYTES = G::TILE_BYTES, WS_BYTES = G::WS_BYTES;
-  constexpr int HALF = HD / 2;  // dQ columns per lane
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  __nv_bfloat16* sdO = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(p); p += TILE_BYTES;
-  float* sLse = reinterpret_cast<float*>(p); p += VEC_BYTES;
-  float* sDelta = reinterpret_cast<float*>(p); p += VEC_BYTES;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sS = reinterpret_cast<float*>(p + warp * WS_BYTES);
-  float* sDP = reinterpret_cast<float*>(p + (WARPS + warp) * WS_BYTES);
-  p += 2 * WARPS * WS_BYTES;
-  __nv_bfloat16* sdS = reinterpret_cast<__nv_bfloat16*>(p) + warp * 16 * LDP;
-
-  const int H = gridDim.y;
-  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
-  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
-  const int q0 = blockIdx.x * BT;
-  load_tile<HD>(sQ, q + base + (size_t)q0 * D, D);
-  load_tile<HD>(sdO, dout + base + (size_t)q0 * D, D);
-  for (int i = threadIdx.x; i < BT; i += blockDim.x) {
-    sLse[i] = lse[row_base + q0 + i];
-    sDelta[i] = delta[row_base + q0 + i];
-  }
-
-  // the warp's 16 queries: rows w*16.. of the Q and dO tiles
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq[HD / 16], fdo[HD / 16];
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fbt;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc, fdq[HD / 16];
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(fq[kk], sQ + warp * 16 * LDT + kk * 16, LDT);
-    wmma::load_matrix_sync(fdo[kk], sdO + warp * 16 * LDT + kk * 16, LDT);
-    wmma::fill_fragment(fdq[kk], 0.0f);
-  }
-
-  // lane owns query row r of the warp's 16 and key columns [half*32, +32)
-  const int r = lane >> 1, half = lane & 1;
-  const float lse_r = sLse[warp * 16 + r], delta_r = sDelta[warp * 16 + r];
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    __syncthreads();  // every warp is done with the previous key tile
-    load_tile<HD>(sK, k + base + (size_t)k0 * D, D);
-    load_tile<HD>(sV, v + base + (size_t)k0 * D, D);
-    __syncthreads();
-
-    // S = Q_w K^T and dP = dO_w V^T (16 queries x 64 keys)
-#pragma unroll
-    for (int nt = 0; nt < BT / 16; ++nt) {
-      wmma::fill_fragment(fc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::load_matrix_sync(fbt, sK + nt * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(fc, fq[kk], fbt, fc);
-      }
-      wmma::store_matrix_sync(sS + nt * 16, fc, LDS, wmma::mem_row_major);
-      wmma::fill_fragment(fc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::load_matrix_sync(fbt, sV + nt * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(fc, fdo[kk], fbt, fc);
-      }
-      wmma::store_matrix_sync(sDP + nt * 16, fc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // P = exp(S * scale - lse), dS = P (dP - delta) scale, to bf16
-    {
-      const float* srow = sS + r * LDS + half * 32;
-      const float* dprow = sDP + r * LDS + half * 32;
-      __nv_bfloat16* dsrow = sdS + r * LDP + half * 32;
-#pragma unroll
-      for (int c = 0; c < 32; c += 2) {
-        float p0 = expf(srow[c] * scale - lse_r);
-        float p1 = expf(srow[c + 1] * scale - lse_r);
-        float ds0 = p0 * (dprow[c] - delta_r) * scale;
-        float ds1 = p1 * (dprow[c + 1] - delta_r) * scale;
-        *reinterpret_cast<__nv_bfloat162*>(dsrow + c) = __floats2bfloat162_rn(ds0, ds1);
-      }
-    }
-    __syncwarp();
-
-    // dQ_w += dS_w K (16 queries x HD dims)
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      wmma::load_matrix_sync(fa, sdS + kk * 16, LDP);
-#pragma unroll
-      for (int nt = 0; nt < HD / 16; ++nt) {
-        wmma::load_matrix_sync(fb, sK + kk * 16 * LDT + nt * 16, LDT);
-        wmma::mma_sync(fdq[nt], fa, fb, fdq[nt]);
-      }
-    }
-  }
-
-  // dQ of the warp's 16 queries, through its f32 tile, cast to bf16
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < HD / 16; ++nt)
-    wmma::store_matrix_sync(sS + nt * 16, fdq[nt], LDS, wmma::mem_row_major);
-  __syncwarp();
-  __nv_bfloat16* dst = dq + base + (size_t)(q0 + warp * 16 + r) * D + half * HALF;
-  const float* src = sS + r * LDS + half * HALF;
-#pragma unroll
-  for (int c = 0; c < HALF; c += 8) {
-    uint4 packed;
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      p2[t] = __floats2bfloat162_rn(src[c + 2 * t], src[c + 2 * t + 1]);
-    *reinterpret_cast<uint4*>(dst + c) = packed;
-  }
-}
-
 // float32 dq: one thread per query of the block's 64-query tile
 template <int HD>
 __global__ void __launch_bounds__(BT)
@@ -557,27 +729,53 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// the four tensor maps of q, k, v, dout: q and dout with boxes of q_rows
+// rows, k and v of kv_rows
+template <int HD>
+bool make_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+               const void* dout, int B, int L, int D, int q_rows, int kv_rows) {
+  return make_map<HD>(&maps[0], q, B, L, D, q_rows) &&
+         make_map<HD>(&maps[1], k, B, L, D, kv_rows) &&
+         make_map<HD>(&maps[2], v, B, L, D, kv_rows) &&
+         make_map<HD>(&maps[3], dout, B, L, D, q_rows);
+}
+
+// the persistent grid over `items` work items; 0 where the SM count fails
+inline int persistent_grid(long long items, cudaError_t* err) {
+  int sms = 0;
+  *err = sm_count(&sms);
+  if (*err != cudaSuccess) return 0;
+  return items < sms ? (int)items : sms;
+}
+
 // the fused kernel (DQ) or the dkv kernel (!DQ; dq unused)
 template <int HD, bool DQ>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int B, int L, int D, int heads, float scale, int dtype,
            cudaStream_t st) {
-  dim3 grid(L / BT, heads, B);
   if (dtype == 0) {
-    constexpr size_t smem = DQ ? Geo<HD>::SMEM_BF16 : Geo<HD>::SMEM_DKV_BF16;
-    cudaError_t err = allow_smem(flash_bwd_bf16_kernel<HD, DQ>, smem);
+    CUtensorMap maps[4];
+    if (!make_maps<HD>(maps, q, k, v, dout, B, L, D, Q_ROWS, KV_ROWS))
+      return (int)cudaErrorInvalidValue;
+    const int nkt = (L + KV_ROWS - 1) / KV_ROWS;
+    const long long items = (long long)nkt * heads * B;
+    if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    const int grid = persistent_grid(items, &err);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_bf16_kernel<HD, DQ><<<grid, WARPS * 32, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-        (const float*)lse, (const float*)delta, (float*)dq,
-        (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, L, D, scale);
+    constexpr int smem = KvCfg<HD, DQ>::SMEM;
+    err = allow_smem(flash_bwd_kv_kernel<HD, DQ>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_kv_kernel<HD, DQ><<<grid, THREADS, smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta,
+        (float*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, L, D, heads, nkt, (int)items,
+        scale, (float)((double)scale * 1.4426950408889634));
   } else if (dtype == 1) {
     constexpr size_t smem = DQ ? Geo<HD>::SMEM_F32 : Geo<HD>::SMEM_DKV_F32;
     cudaError_t err = allow_smem(flash_bwd_f32_kernel<HD, DQ>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_f32_kernel<HD, DQ><<<grid, BT, smem, st>>>(
+    flash_bwd_f32_kernel<HD, DQ><<<dim3(L / BT, heads, B), BT, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq, (float*)dk, (float*)dv, L, D, scale);
@@ -591,21 +789,28 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int L,
               int D, int heads, float scale, int dtype, cudaStream_t st) {
-  dim3 grid(L / BT, heads, B);
   if (dtype == 0) {
-    constexpr size_t smem = Geo<HD>::SMEM_DQ_BF16;
-    cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<HD>, smem);
+    CUtensorMap maps[4];
+    if (!make_maps<HD>(maps, q, k, v, dout, B, L, D, DQ_ROWS, DqCfg<HD>::BK))
+      return (int)cudaErrorInvalidValue;
+    const int nq = (L + DQ_ROWS - 1) / DQ_ROWS;
+    const long long items = (long long)nq * heads * B;
+    if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    const int grid = persistent_grid(items, &err);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16_kernel<HD><<<grid, WARPS * 32, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-        (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, L, D,
-        scale);
+    constexpr int smem = DqCfg<HD>::SMEM;
+    err = allow_smem(flash_bwd_dq_kernel<HD>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<HD><<<grid, THREADS, smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta,
+        (__nv_bfloat16*)dq, L, D, heads, nq, (int)items, scale,
+        (float)((double)scale * 1.4426950408889634));
   } else if (dtype == 1) {
     constexpr size_t smem = Geo<HD>::SMEM_DQ_F32;
     cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<HD>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32_kernel<HD><<<grid, BT, smem, st>>>(
+    flash_bwd_dq_f32_kernel<HD><<<dim3(L / BT, heads, B), BT, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq, L, D, scale);

@@ -69,15 +69,17 @@
 // plus 2 * stages * 128*hd*2 for the ring (28 KB at 16, 56 KB at 32, 112 KB
 // at 64, 160 KB at 128); float32: 2 * 64 * hd * 4 (32 KB at 64).
 //
-// cuTensorMapEncodeTiled, a driver function, is looked up once through
-// cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
+// The Hopper primitives (mbarriers, TMA, wgmma descriptors and products,
+// the tensor-map encoder) are in hopper.cuh, shared with flash_bwd.cu.
 // FLASH_PROBE_NO_KV_LOADS and FLASH_PROBE_NO_EXP make measurement-only
-// builds with wrong results (scripts/flash_fwd_probe.py): K and V loaded
+// builds with wrong results (scripts/flash_probe.py): K and V loaded
 // for the first tiles only, and the exponentials replaced by their input.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,11 +96,10 @@ constexpr int CONSUMER_REGS = 240;
 
 template <int HD>
 struct Cfg {
-  static constexpr int BOX = HD < 64 ? HD : 64;  // columns per TMA box
-  static constexpr int ROW = BOX * 2;            // bytes per box row = swizzle span
-  static constexpr int NBOX = HD / BOX;          // 2 at head_dim 128
-  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
-  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
+  static constexpr int BOX = HeadTile<HD>::BOX;
+  static constexpr int ROW = HeadTile<HD>::ROW;
+  static constexpr int NBOX = HeadTile<HD>::NBOX;
+  static constexpr uint64_t LAYOUT = HeadTile<HD>::LAYOUT;
   static constexpr int STAGES = HD == 128 ? 2 : 3;
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;
@@ -109,216 +110,6 @@ struct Cfg {
   static constexpr int SMEM = BAR_OFFSET + NBARS * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-// the retry loop inside the asm: no branch of the C++ program
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-
-// arrives where `pred` holds, by a predicated instruction, not a branch:
-// ptxas serialises every wgmma of a kernel whose in-flight products cross
-// a divergent branch, so the consumers' code has none
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      :: "r"(bar), "r"((int)pred) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// a 32-bit store where `pred` holds (predicated, as mbar_arrive_if)
-__device__ __forceinline__ void st_b32_if(void* dst, uint32_t v, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b32 [%0], %1;\n}\n"
-      :: "l"(dst), "r"(v), "r"((int)pred) : "memory");
-}
-
-// one box of a 3D tensor map into shared memory; completion counted on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout type
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// waits until at most N committed wgmma groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-#ifdef FLASH_PROBE_NO_EXP  // measurement only: what the exponentials cost
-  return x;
-#endif
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------- wgmma
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 16] (+)= A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-
-// S = Q K^T for one warpgroup's 64 rows and a 128-key tile: one wgmma per
-// 16 columns of the head dim, from descriptors of the warpgroup's Q rows
-// and of the stage's K tile (K-major; a descriptor's low bits are the
-// address / 16, so an offset within the tile is added to them)
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint64_t dq, uint64_t dk) {
-  using C = Cfg<HD>;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 / C::BOX, col = kk * 16 % C::BOX;
-    wgmma_ss_n128(sc, dq + ((c * BQ * C::ROW + col * 2) >> 4),
-                  dk + ((c * BK * C::ROW + col * 2) >> 4), kk > 0);
-  }
-}
-
-// O += P V for a 128-key tile: P from registers, V MN-major (one wgmma per
-// 16 keys; at head_dim 128 the two 64-column boxes are LBO apart)
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2], const uint32_t (&pa)[BK / 16][4],
-                                         uint64_t dv) {
-  using C = Cfg<HD>;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t d = dv + ((kk * 16 * C::ROW) >> 4);
-    if constexpr (HD == 16) wgmma_rs_n16(acc, pa[kk], d, 1);
-    else if constexpr (HD == 32) wgmma_rs_n32(acc, pa[kk], d, 1);
-    else if constexpr (HD == 64) wgmma_rs_n64(acc, pa[kk], d, 1);
-    else wgmma_rs_n128(acc, pa[kk], d, 1);
-  }
-}
 
 // The online softmax of one S tile in its register fragment: sc[4i + e] is
 // row r0 (e < 2) or r1 = r0 + 8, key 8i + 2 quad + (e & 1). With TAIL
@@ -477,7 +268,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(full_q, qph);
       mbar_wait(full_k + 8 * s, ph);
       wgmma_fence();
-      issue_qk<HD>(sc, dq, dk0 + s * STAGE);
+      issue_abt<HD, BK, BQ, BK>(sc, dq, dk0 + s * STAGE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -497,9 +288,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(full_k + 8 * s, ph);
         mbar_wait(full_v + 8 * sv, phv);
         wgmma_fence();
-        issue_qk<HD>(sc, dq, dk0 + s * STAGE);
+        issue_abt<HD, BK, BQ, BK>(sc, dq, dk0 + s * STAGE);
         wgmma_commit();
-        issue_pv<HD>(acc, pin, dv0 + sv * STAGE);
+        issue_pv<HD, BK / 16>(acc, pin, dv0 + sv * STAGE);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(sc);
@@ -524,7 +315,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       auto last = [&](const uint32_t (&pin)[BK / 16][4]) {
         mbar_wait(full_v + 8 * sv, phv);
         wgmma_fence();
-        issue_pv<HD>(acc, pin, dv0 + sv * STAGE);
+        issue_pv<HD, BK / 16>(acc, pin, dv0 + sv * STAGE);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -619,49 +410,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------- launchers
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// [B, L, D] bf16 as a 3D map (D innermost), box [1, rows, BOX] at the
-// swizzle of the box's row
-template <int HD>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int D, int rows) {
-  using C = Cfg<HD>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)C::BOX, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = C::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : C::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD, bool LSE>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                 int L, int heads, int D, float scale, cudaStream_t st) {
@@ -669,10 +417,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   if (!make_map<HD>(&tq, q, B, L, D, BQ) || !make_map<HD>(&tk, k, B, L, D, BK) ||
       !make_map<HD>(&tv, v, B, L, D, BK))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const int nq = (L + BQ - 1) / BQ;
   const long long items = (long long)nq * heads * B;

@@ -250,20 +250,30 @@ def test_flash_fwd_lse_kernel_matches_plain(cuda, dtype, shape):
     assert float(torch.linalg.vector_norm(out - rout) / torch.linalg.vector_norm(rout)) <= 2.0 ** -8
 
 
+# the backward's shapes: the first test's own ([2,256,256], 4 heads of 64),
+# then every head dim at L = 64, 192 (the bf16 kernels' last 128-row tile
+# half past L) and 1024 with B = 3, width 256
+BWD_SHAPES = [(2, 256, 64)] + FWD_SHAPES
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=_fwd_id)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_flash_bwd_kernel_matches_plain(cuda, dtype):
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, shape):
     """The backward kernel against its plain version on the same forward
     output and lse: float32 ||d||/||ref|| <= 1e-5 for each of dq, dk, dv;
     bf16 <= 2^-10 (both sides round P against the same lse and dS once,
     and sum the products in another order, the kernel's dq by atomics:
     ~1e-4 on the card; one wrong (query, head) row of dq gives ~2^-5.5
-    at this shape)."""
-    q, k, v, dout = _qkv(cuda, dtype, seed=4)
-    out, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, 4, 0.8)
+    at [2,256,256])."""
+    batch, length, head_dim = shape
+    heads = 256 // head_dim
+    q, k, v, dout = _qkv(cuda, dtype, batch=batch, length=length, seed=4 + head_dim)
+    out, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads, 0.8)
     before = attn_ops.BWD_LAUNCHES
-    grads = attn_ops.flash_attention_tokens_bwd(q, k, v, out, lse, dout, 4, 0.8)
+    grads = attn_ops.flash_attention_tokens_bwd(q, k, v, out, lse, dout, heads, 0.8)
     assert attn_ops.BWD_LAUNCHES == before + 1
-    refs = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, out, lse, dout, 4, 0.8)
+    refs = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, out, lse, dout, heads,
+                                                         0.8)
     bound = 1e-5 if dtype == torch.float32 else 2.0 ** -10
     for name, a, b in zip("qkv", grads, refs):
         assert a.dtype == dtype and a.shape == b.shape, name
@@ -391,20 +401,23 @@ def test_flash_kernels_other_head_dims(cuda, dtype, head_dim):
         assert _rel(a.float(), b.float()) <= bound
 
 
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", [(2, 512, hd) for hd in (16, 32, 64, 128)] + FWD_SHAPES,
+                         ids=_fwd_id)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_flash_split_bwd_kernels_match_plain(cuda, monkeypatch, dtype, head_dim):
+def test_flash_split_bwd_kernels_match_plain(cuda, monkeypatch, dtype, shape):
     """The split dq and dk/dv kernels (`flash_attention_tokens_bwd` under
     SMOKEPHYS_FUSED_BWD=0) against their plain versions on the same
     forward output and lse, with the fused kernel's bounds:
     ||d||/||ref|| <= 1e-5 in float32 and 2^-10 in bf16 for each of dq, dk,
     dv. Neither kernel uses atomics, so two runs are bit-equal and each
-    episode of a batch of 2 is bit-equal to its call alone; one launch of
+    episode of the batch is bit-equal to its call alone; one launch of
     each per call."""
     monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", "0")
+    batch, length, head_dim = shape
     heads = 256 // head_dim
-    g = torch.Generator().manual_seed(100 + head_dim)
-    q, k, v, go = (torch.randn(2, 512, 256, generator=g).to(cuda, dtype) for _ in range(4))
+    g = torch.Generator().manual_seed(100 + head_dim + length)
+    q, k, v, go = (torch.randn(batch, length, 256, generator=g).to(cuda, dtype)
+                   for _ in range(4))
     o, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads, 0.8)
     args = (q, k, v, o, lse, go, heads, 0.8)
     n = (attn_ops.BWD_DQ_LAUNCHES, attn_ops.BWD_DKV_LAUNCHES, attn_ops.BWD_LAUNCHES)
@@ -419,11 +432,29 @@ def test_flash_split_bwd_kernels_match_plain(cuda, monkeypatch, dtype, head_dim)
         assert _rel(a.float(), b.float()) <= bound, (name, _rel(a.float(), b.float()))
     for a, b in zip((dq, dk, dv), attn_ops.flash_attention_tokens_bwd(*args)):
         assert torch.equal(a, b)
-    for e in range(2):
+    for e in range(batch):
         solo = [t[e:e + 1].contiguous() for t in (q, k, v, o, lse, go)]
         for a, b in zip((dq, dk, dv),
                         attn_ops.flash_attention_tokens_bwd(*solo, heads, 0.8)):
             assert torch.equal(a[e:e + 1], b)
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=_fwd_id)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_split_dkv_equals_fused(cuda, monkeypatch, dtype, shape):
+    """The split route's dk and dv are the fused route's bits: the dk/dv
+    kernel is the fused kernel's code with its dQ step compiled out, and
+    dk and dv are summed in the same order in both."""
+    batch, length, head_dim = shape
+    heads = 256 // head_dim
+    q, k, v, go = _qkv(cuda, dtype, batch=batch, length=length, seed=200 + head_dim)
+    o, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads, 0.8)
+    args = (q, k, v, o, lse, go, heads, 0.8)
+    monkeypatch.delenv("SMOKEPHYS_FUSED_BWD", raising=False)
+    _, fdk, fdv = attn_ops.flash_attention_tokens_bwd(*args)
+    monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", "0")
+    _, sdk, sdv = attn_ops.flash_attention_tokens_bwd(*args)
+    assert torch.equal(fdk, sdk) and torch.equal(fdv, sdv)
 
 
 def test_flash_split_route_launches(cuda, monkeypatch):
