@@ -10,10 +10,17 @@ From the root of a checkout, with one CUDA card:
    seconds; counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions
    in the SASS of libflash_tokens.so and libflash_bwd.so (cuobjdump) and
    fails if either is 0 in either, or if ptxas reported serialised wgmma
-   (C75xx) for a kernel of flash_bwd.cu;
+   (C75xx) for a kernel of flash_bwd.cu; prints the registers and spills
+   of libfused_step.so's kernels (ptxas) and counts its cluster-barrier
+   instructions (UCGABAR_ARV, UCGABAR_WAIT), failing if there are none;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card (fused solver step and multi-step at 128^2, one episode and a batch
-   of four, the multi-step again at the dataset's 64 in the timing phase; lean flash attention at B=4 in bf16 and float32 and at the
+   of four, the step also at 1024^2 (the global mode) and, at dt 1 with a
+   shear that moves cells 1 to 3.6 cells a step so that the far taps carry
+   weight, at max_disp 2 and 3 (the runtime tap radius) at 128^2 and 3 at
+   1024^2, the multi-step again at the dataset's 64 in the timing phase,
+   each with the launch plan it took; lean flash
+   attention at B=4 in bf16 and float32 and at the
    serving slice's B=19; the training forward with logsumexp and the
    backward at the training shape [8, 1024, 512], bf16, and the backward
    also in float32; there, in bf16 and float32, the split backward's dq
@@ -46,7 +53,10 @@ From the root of a checkout, with one CUDA card:
    train step on both routes timed in turns, one eval pass, a checkpoint
    written and served again through `train/serving.load_model`;
 7. timing phase: CUDA-event medians after warm-up (the backward kernels
-   and SDPA's backward in turns, the median of three rounds); with --trace, also
+   and SDPA's backward in turns, the median of three rounds; the fused
+   solver kernels at 128^2 x 1 and x 64, 1024^2 x 1 and 64 x 20 steps also
+   with their launch plan, and at 128^2 the kernel's device time);
+   with --trace, also
    traces the serving forward, the simulator step and one train step with
    torch.profiler and prints where their device time goes;
 8. vorticity phase: `config/config_256_vorticity.yaml`, where vorticity
@@ -174,6 +184,13 @@ VOL_FLASH_GRAD_REL_NORM = 1e-4
 PARITY_VOL_MSE = 0.000489  # PARITY.md: the JAX model on JAX's held-out draws
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
+BIG_GRID = 1024  # config_streaming_1024.yaml's grid: the fused step's global mode
+# the fused step's far-tap checks: at dt FAST_DT a shear of amplitude SHEAR
+# moves most cells 1 to 3.6 cells a step, so the taps at 2 and 3 cells carry
+# weight (FAR_TAPS_DIFF: the plain step one radius lower differs by more)
+FAST_DT = 1.0
+SHEAR = 3.0
+FAR_TAPS_DIFF = 0.5
 
 T0 = time.time()
 
@@ -251,6 +268,30 @@ def step_flops(h, w, iters, taps=3):
             + 3 * ((h - 1) * w + h * (w - 1))  # correction
             + (12 + 4 * taps + 7 * taps * taps) * (nu + nv + nc)  # advection
             + nc)                          # decay
+
+
+def smoke_state(dev, episodes, size, seed=0, shear=0.0):
+    """`episodes` states at size^2: three smoke blobs and random velocities
+    of ~0.5 cells per unit time, plus, with `shear`, a divergence-free shear
+    of that amplitude (u a function of the column, v of the row; at dt
+    FAST_DT and SHEAR it moves most cells 1 to 3.6 cells a step), made on
+    the host from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(size, dtype=torch.float32),
+                            torch.arange(size, dtype=torch.float32), indexing="ij")
+    d = torch.zeros(episodes, size, size)
+    for _ in range(3):
+        cy, cx = (torch.rand(2, generator=g) * 0.6 + 0.2) * size
+        d += torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (0.004 * size * size))
+    u = 0.5 * torch.randn(episodes, size + 1, size, generator=g)
+    v = 0.5 * torch.randn(episodes, size, size + 1, generator=g)
+    if shear:
+        phase = torch.rand(2, episodes, 1, 1, generator=g) * 2 * math.pi
+        u = u + shear * torch.sin(2 * math.pi * xx[0] / 37 + phase[0])
+        v = v + shear * torch.cos(2 * math.pi * yy[:, :1] / 29 + phase[1])
+    return [t.to(dev).contiguous() for t in (u, v, torch.zeros_like(d), d)]
 
 
 def step_bytes(h, w):
@@ -524,9 +565,9 @@ def backward_extra_checks(attn_ops, dev, gen):
     return errs
 
 
-def sass_counts(library):
-    """(HGMMA, UTMALDG) instruction counts in the SASS of a built library,
-    from the toolkit's cuobjdump; None where the toolkit has none."""
+def sass_counts(library, mnemonics=("HGMMA", "UTMALDG")):
+    """Counts of each of `mnemonics` in the SASS of a built library, from
+    the toolkit's cuobjdump; None where the toolkit has none."""
     from smokephysai_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -536,7 +577,26 @@ def sass_counts(library):
                          timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass {library} failed: {out.stderr.strip()[:500]}")
-    return out.stdout.count("HGMMA"), out.stdout.count("UTMALDG")
+    return tuple(out.stdout.count(m) for m in mnemonics)
+
+
+def device_ms(fn, calls=20):
+    """Mean device time per call of the kernels `fn` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us == 0:
+        fail("the profiler recorded no device time")
+    return us / calls / 1e3
 
 
 def flash_rate(flops, ms, bound_ms):
@@ -1415,6 +1475,25 @@ def main():
                           f"sass {lib}: HGMMA {sass[0]}, UTMALDG {sass[1]} (cuobjdump -sass)")
         if sass is not None and min(sass) == 0:
             fail(f"the flash kernels of {src} do not run on wgmma and TMA: {sass_lines[-1]}")
+    step_lib = _build.library_path(step_ops.SOURCE, step_ops.FLAGS)
+    bars = sass_counts(step_lib, ("UCGABAR_ARV", "UCGABAR_WAIT"))
+    sass_lines.append(f"sass {os.path.basename(step_lib)}: cuobjdump not in the toolkit"
+                      if bars is None else
+                      f"sass {os.path.basename(step_lib)}: UCGABAR_ARV {bars[0]}, "
+                      f"UCGABAR_WAIT {bars[1]} (cluster barriers)")
+    if bars is not None and min(bars) == 0:
+        fail(f"the fused solver kernels have no cluster barrier: {sass_lines[-1]}")
+    step_log = _build.build_logs.get(step_ops.SOURCE)
+    if step_log is None:
+        say(f"  {step_ops.SOURCE}: built before this run, no ptxas log to read")
+    else:
+        regs = [line.split("Used")[1].split(",")[0].strip() for line in step_log.splitlines()
+                if "registers" in line and "Used" in line]
+        spills = [line.strip() for line in step_log.splitlines()
+                  if "spill" in line and not line.strip().startswith("0 bytes spill stores, "
+                                                                      "0 bytes spill loads")]
+        say(f"ptxas {step_ops.SOURCE}: {len(regs)} kernels, registers per thread "
+            f"{sorted(set(regs))}; spills: {spills or 'none'}")
     sass_line = "; ".join(sass_lines)
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -1455,6 +1534,43 @@ def main():
     say(f"kernel fused_step 128^2 x1: max|d| {fused_err:.3e} (bound {FUSED_ATOL:g})")
     if not fused_err <= FUSED_ATOL:
         fail("fused_step disagrees with its plain version")
+
+    say(f"  plan: {step_ops.launch_plan(1, *grid, 1, device=dev).describe()}")
+    far_errs = {}
+    for size, max_disp in ((grid[0], 2), (grid[0], 3), (BIG_GRID, 3)):
+        far = smoke_state(dev, 1, size, seed=max_disp, shear=SHEAR)
+        plan = step_ops.launch_plan(1, size, size, max_disp, device=dev)
+        near_ref = step_ops.fused_step_reference(*far, FAST_DT, visc, iters, max_disp - 1)
+        pout = step_ops.fused_step_reference(*far, FAST_DT, visc, iters, max_disp)
+        kout = step_ops.fused_step(*far, FAST_DT, visc, iters, max_disp)
+        torch.cuda.synchronize()
+        weight = max(maxerr(a, b) for a, b in zip(near_ref, pout))
+        err = max(maxerr(a, b) for a, b in zip(kout, pout))
+        far_errs[(size, max_disp)] = err
+        say(f"kernel fused_step {size}^2 x1 max_disp {max_disp} "
+            f"({'compiled' if max_disp <= 2 else 'runtime'} tap radius), dt {FAST_DT:g}, "
+            f"shear {SHEAR:g}: max|d| {err:.3e} (bound {FUSED_ATOL:g}); the plain step at "
+            f"max_disp {max_disp - 1} differs by {weight:.3f} (must exceed "
+            f"{FAR_TAPS_DIFF:g}); plan: {plan.describe()}")
+        if not weight > FAR_TAPS_DIFF:
+            fail(f"the far-tap check at {size}^2 max_disp {max_disp} gives the outermost "
+                 f"taps no weight")
+        if plan.cluster < 2:
+            fail(f"the far-tap check at {size}^2 runs on one CTA: no tap crosses a stripe")
+        if not err <= FUSED_ATOL:
+            fail(f"fused_step at {size}^2 max_disp {max_disp} disagrees with its plain version")
+    err3 = max(far_errs.values())
+    big = smoke_state(dev, 1, BIG_GRID)
+    kout = step_ops.fused_step(*big, dt, visc, iters, 1)
+    pout = step_ops.fused_step_reference(*big, dt, visc, iters, 1)
+    torch.cuda.synchronize()
+    err_big = max(maxerr(a, b) for a, b in zip(kout, pout))
+    say(f"kernel fused_step {BIG_GRID}^2 x1: max|d| {err_big:.3e} (bound {FUSED_ATOL:g}); "
+        f"plan: {step_ops.launch_plan(1, BIG_GRID, BIG_GRID, 1, device=dev).describe()}")
+    if not err_big <= FUSED_ATOL:
+        fail(f"fused_step at {BIG_GRID}^2 disagrees with its plain version")
+    del kout, pout, near_ref, far, big
+    fused_err = max(fused_err, err3, err_big)
 
     rng = np.random.default_rng(0)
     episodes = [prepared_state(rng.uniform(16, 112, (3, 2)).tolist(),
@@ -1653,11 +1769,22 @@ def main():
     for episodes_n in (1, 64):
         f = [t.expand(episodes_n, *t.shape).contiguous() for t in fields1]
         ms = timed(lambda: step_ops.fused_step(*f, dt, visc, iters, 1))
+        dev_ms = device_ms(lambda: step_ops.fused_step(*f, dt, visc, iters, 1))
         plain_ms = timed(lambda: step_ops.fused_step_reference(*f, dt, visc, iters, 1))
         bound, by = step_bound(episodes_n)
         timings[("fused_step", episodes_n)] = (ms, plain_ms, bound, by)
-        say(f"time fused_step 128^2 x{episodes_n} on {name}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        say(f"time fused_step 128^2 x{episodes_n} on {name}: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); plan: "
+            f"{step_ops.launch_plan(episodes_n, *grid, 1, device=dev).describe()}")
+    big = smoke_state(dev, 1, BIG_GRID)
+    ms = timed(lambda: step_ops.fused_step(*big, dt, visc, iters, 1))
+    plain_ms = timed(lambda: step_ops.fused_step_reference(*big, dt, visc, iters, 1), runs=5)
+    bound, by = lower_bound(2 * step_bytes(BIG_GRID, BIG_GRID),
+                            step_flops(BIG_GRID, BIG_GRID, iters), F32_FLOPS)
+    say(f"time fused_step {BIG_GRID}^2 x1 on {name}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); plan: "
+        f"{step_ops.launch_plan(1, BIG_GRID, BIG_GRID, 1, device=dev).describe()}")
+    del big
 
     library = {}
     for batch in (19, 64):
@@ -1720,7 +1847,9 @@ def main():
                      64 * T * step_flops(*tgrid, iters), F32_FLOPS)
     timings["fused_multi_step"] = (ms, plain_ms, *mb)
     say(f"time fused_multi_step 128^2 x64 T={T} on {name}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {mb[0]:.6f} ms ({mb[1]}); whole 64-episode "
+        f"plain {plain_ms:.4f} ms, bound {mb[0]:.6f} ms ({mb[1]}); plan: "
+        f"{step_ops.launch_plan(64, *tgrid, 1, multi=True, device=dev).describe()}; "
+        f"whole 64-episode "
         f"generation chunk (simulate_episode: sources, kernel, perturbation, chaos "
         f"labels) {chunk_ms:.4f} ms")
 

@@ -1,295 +1,758 @@
 // One whole smoke-solver step in one kernel launch, and a whole episode of
-// steps in one launch.
+// steps in one launch, each episode on one thread-block cluster.
 //
 // Replaces: smokephysai_tpu/ops/pallas/fused_step.py, fused_step_pallas
 // (_fused_step_kernel -> _step_vals) and fused_multi_step_pallas
 // (_fused_multi_step_kernel, vmapped over episodes by the dataset
-// generator): buoyancy on v[:, :-1], replicate-pad
-// diffusion of u, v and density, divergence, warm-started zero-Dirichlet
-// Jacobi sweeps, interior velocity correction, sequential tent-shift
-// advection (u, then v with the new u, then density with both) and the
-// density decay.
+// generator): buoyancy on v[:, :-1], replicate-pad diffusion of u, v and
+// density, divergence, warm-started zero-Dirichlet Jacobi sweeps, interior
+// velocity correction, sequential tent-shift advection (u, then v with the
+// new u, then density with both) with any tap radius D, and the density
+// decay. The TPU kernel keeps the whole state in VMEM for all its steps.
 //
 // What bounds it on an H100: latency, not bytes or operations. At 128^2 the
-// four fields are ~263 KB in and out and a step is ~6 MFLOP, but it is ~26
-// dependent stages (20 of them Jacobi sweeps), each of which must see the
-// whole previous stage. The TPU kernel kept the state in VMEM; here the
-// fields do not fit one block's 227 KB of shared memory, so they live in
-// global memory, where at this size they stay resident in the 50 MB L2.
+// four fields are ~263 KB in and out and a step is ~6 MFLOP, but a step is
+// a chain of dependent stages (iters + 5: 25 at 20 Jacobi sweeps), each of
+// which must see its neighbours' results of the stage before. At batch 1 (a
+// served scene) one block per episode reaches 1 of the 132 SMs, and a state
+// that does not fit one SM's 227 KB of shared memory goes through L2 at
+// every stage. A cluster barrier's release costs a MEMBAR.ALL.GPU, ~0.5 us,
+// which the shared mode's mbarrier handshake does without.
 //
-// Design: one block of 1024 threads per episode (gridDim.x = episodes), so a
-// batch of episodes fills more SMs with no change to the code. Each stage is
-// a block-strided loop over the cells, then __syncthreads(). Stages never
-// read a buffer they write: the wrapper passes ping-pong scratch for the
-// diffused fields, the divergence and the Jacobi iterate, and each
-// advection writes straight into its output. Buffers written inside the
-// kernel are read with plain loads (no __ldg / restrict), so a thread sees
-// what other threads of its block wrote before the barrier.
+// Design: one thread-block cluster of up to 16 CTAs per episode. The grid
+// is cut into row stripes of `rows` rows, one per CTA (the last CTA also
+// owns u's extra row h). A stage is a loop over the CTA's own rows by 2D
+// thread coordinates (a warp along a row, warps across rows; no divide per
+// cell). The stages: (1) buoyancy and the diffusion of u and v; (2) the
+// Jacobi sweeps, the first computing the divergence on the fly, the others
+// four cells a thread by 16-byte loads where w is a multiple of 4; (3) the
+// velocity correction, with the diffusion of the density, which no stage
+// needs before; (4-6) the advection of u, v and the density (with the
+// decay). The state and its intermediates live in 6 planes per episode,
+// whose roles rotate from stage to stage and step to step so that no stage
+// reads a plane that it writes.
 //
-// The multi-step kernel loops the same step body over `steps` inside one
-// launch (one block per episode again, so a 64-episode chunk fills 64 of
-// the 132 SMs) and copies each step's density to traj[episode, t]: the
-// [N, T, H, W] layout of the vmapped JAX call. Its state ping-pongs between
-// the output tensors and a second set in scratch, so the inputs are never
-// written and the last step lands in the outputs.
+// Two modes, one template. SHARED (every grid whose planes fit 227 KB per
+// CTA at some cluster size, up to ~320^2): each CTA keeps its stripe of the
+// 6 planes, (rows + 2 halo) x (w + 1) floats each with halo = max(D, 1),
+// in dynamic shared memory, and every read is local (the diffusion's, the
+// Jacobi sweep's and the correction's +-1 rows, the divergence's u row
+// below, the advection's +-D taps and v row below); rows >= D + 2, so a
+// neighbour's halo is all a tap ever reaches. A stage ends with a halo
+// exchange instead of a cluster barrier: the CTA's threads meet, the rows
+// within `halo` of the stripe's edges go into the neighbours' halos by
+// st.async (distributed shared memory), which completes on the receiver's
+// mbarrier, and each CTA waits for its own halos (end_stage). The global
+// mode (512^2, 1024^2): the same stages and cluster, whole planes in
+// global scratch (one set per launched cluster, L2-resident up to ~1024^2),
+// no halos, and a cluster barrier (barrier.cluster arrive.release /
+// wait.acquire) after each stage. The launch plan (ops/fused_step.py,
+// plan_launch) picks the mode, the cluster size, the rows and the threads
+// per CTA, and launches at most as many clusters as fit the card at once;
+// each takes episodes in turn. The multi-step kernel keeps the state in
+// place for all `steps` steps, reading it once and writing it once, and
+// writes each step's density to traj[e, t] from the advection itself.
+// Loads of planes written inside the kernel are plain loads (no __ldg /
+// restrict), ordered by the barriers' release/acquire.
 //
 // Rounding: built with -fmad=false and with the operations in the order
 // the TPU kernel writes them, so each stage rounds as the plain PyTorch
-// version (ops/fused_step.py, fused_step_reference) does.
+// version (ops/fused_step.py, fused_step_reference) does; the multi-step
+// kernel runs the same code as the single-step one, so T steps in one
+// launch equal T single launches to the bit, whatever the plans.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-struct Fields {
-  int h, w;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxSmem = 232448;
+constexpr int kSlots = 6;
+constexpr int kBarBytes = 16;  // shared mode: two mbarriers
+
+struct Params {
+  const float* u;
+  const float* v;
+  const float* p;
+  const float* d;
+  float* uo;
+  float* vo;
+  float* po;
+  float* dout;
+  float* traj;     // [episodes, steps, h, w], or null
+  float* scratch;  // global mode: kSlots planes per launched cluster
+  int episodes, h, w, iters, steps, max_disp;
   float dt, buoy, coef_uv, coef_d;
+  int rows;  // rows per CTA (the last CTA may have fewer)
 };
+
+// Floats of one slot: a CTA's stripe with its halos (shared mode), or a
+// whole plane (global mode); u (h + 1, w) and v (h, w + 1) both fit. A
+// multiple of 4, so that every slot starts 16-byte aligned.
+__host__ __device__ inline long slot_floats(int shared, int rows, int halo,
+                                            int h, int w) {
+  const long f =
+      shared ? (long)(rows + 2 * halo) * (w + 1) : (long)(h + 1) * (w + 1);
+  return (f + 3) & ~3L;
+}
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_count() {
+  unsigned r;
+  asm("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: what was written before is
+// seen after, in shared memory (this CTA's and the others') and in global.
+// The release is a MEMBAR.ALL.GPU in the SASS.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// f + coef * (up + down + left + right - 4 f) with replicate padding, where
-// f(i, j) = a[i, j] + (j < add_cols ? add_coef * b[i, j] : 0) (the buoyancy
-// term of v, folded into the read; add_cols = 0 for a plain field).
-__device__ void diffuse(const float* a, const float* b, float add_coef,
-                        int add_cols, int bw, int fh, int fw, float coef,
-                        float* out) {
-  auto at = [&](int i, int j) -> float {
-    float x = a[i * fw + j];
-    if (j < add_cols) x = x + add_coef * b[i * bw + j];
-    return x;
-  };
-  for (int idx = threadIdx.x; idx < fh * fw; idx += blockDim.x) {
-    int i = idx / fw, j = idx - (idx / fw) * fw;
-    float f = at(i, j);
-    float up = at(clampi(i - 1, 0, fh - 1), j);
-    float down = at(clampi(i + 1, 0, fh - 1), j);
-    float left = at(i, clampi(j - 1, 0, fw - 1));
-    float right = at(i, clampi(j + 1, 0, fw - 1));
-    float lap = up + down + left + right - 4.0f * f;
-    out[idx] = f + coef * lap;
+// This CTA's place in its episode and its threads.
+struct Ctx {
+  int h;
+  int r0;    // first grid row of the stripe
+  int n;     // cell rows of the stripe
+  int nu;    // u rows of the stripe: n, and row h on the last CTA
+  int rows;  // rows per CTA
+  int halo;  // halo rows above and below each stripe (shared mode)
+  unsigned rank, csize;
+  int tx, ty, bx, by;
+};
+
+// One plane in one slot. row(li) is the address of grid row r0 + li; in
+// the shared mode li lies in [-halo, n + halo) (the halos hold copies of
+// the neighbours' rows), in the global mode anywhere in the grid.
+template <bool SHARED>
+struct Plane {
+  float* base;  // shared: the slot in this CTA; global: the plane's row 0
+  int stride;
+  __device__ __forceinline__ float* row(const Ctx& c, int li) const {
+    if constexpr (SHARED) return base + (li + c.halo) * stride;
+    return base + (long)(c.r0 + li) * stride;
+  }
+};
+
+// A plane a stage wrote: its row width, and whether it is u-shaped (the
+// last CTA also owns row h).
+template <bool S>
+struct Written {
+  Plane<S> pl;
+  int fw;
+  bool u_rows;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The shared::cluster address of shared address `a` in CTA `rank`.
+__device__ __forceinline__ uint32_t map_u32(uint32_t a, unsigned rank) {
+  uint32_t out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+// The end of a stage. Global mode: a cluster barrier. Shared mode: the
+// CTA's threads meet (its own rows are written and every read of the
+// stage is done); each written plane's rows within `halo` of the stripe's
+// edge go into the neighbours' halos by st.async, which completes on the
+// receiver's mbarrier for the stage's parity; then each CTA waits until
+// its own halos have come in. A CTA sends stage k's rows only once all its
+// reads up to stage k are done, and a neighbour writes stage k + 1's rows
+// only after it has them, so no halo is overwritten while it is read.
+// The mbarrier wait acquires at cluster scope; no MEMBAR.ALL.GPU is
+// needed, as a cluster barrier's release would be.
+struct Halos {
+  uint32_t bar;  // this CTA's two mbarriers (shared address of the first)
+  int k;         // stages ended so far
+};
+
+template <bool S>
+__device__ void end_stage(const Ctx& c, Halos& hx, const Written<S>* w,
+                          int nw) {
+  if constexpr (!S) {
+    cluster_barrier();
+  } else {
+    __syncthreads();
+    const uint32_t bar = hx.bar + 8 * (hx.k & 1);
+    const bool has_prev = c.rank > 0, has_next = c.rank + 1 < c.csize;
+    uint32_t bytes = 0;
+    for (int q = 0; q < nw; ++q) {
+      const Plane<S> pl = w[q].pl;
+      const int fw = w[q].fw;
+      const int mine = c.n + (w[q].u_rows && !has_next ? 1 : 0);
+      // rows [0, top) to the previous CTA's rows [rows, rows + top);
+      // rows [n - halo, n) to the next CTA's rows [-halo, 0)
+      const int top = has_prev ? min(c.halo, mine) : 0;
+      const int bot = has_next ? c.halo : 0;
+      const uint32_t bar_prev = has_prev ? map_u32(bar, c.rank - 1) : 0;
+      const uint32_t bar_next = has_next ? map_u32(bar, c.rank + 1) : 0;
+      for (int r = c.ty; r < top + bot; r += c.by) {
+        const bool up = r < top;
+        const int li = up ? r : c.n - c.halo + (r - top);
+        const int to = up ? li + c.rows : li - c.n;
+        const float* src = pl.row(c, li);
+        const uint32_t dst = map_u32(smem_u32(pl.row(c, to)), up ? c.rank - 1 : c.rank + 1);
+        const uint32_t rb = up ? bar_prev : bar_next;
+        for (int j = c.tx; j < fw; j += c.bx)
+          asm volatile(
+              "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+              :: "r"(dst + 4 * j), "r"(__float_as_uint(src[j])), "r"(rb) : "memory");
+      }
+      // what the neighbours send: halo rows from the previous CTA, and
+      // from the next what it has of them (u's row h on the last)
+      int in = has_prev ? c.halo : 0;
+      if (has_next) {
+        const int r0n = c.r0 + c.rows;
+        const int nn = min(c.rows, c.h - r0n) + (w[q].u_rows && c.rank + 2 == c.csize ? 1 : 0);
+        in += min(c.halo, nn);
+      }
+      bytes += 4u * in * fw;
+    }
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar), "r"(bytes) : "memory");
+    const uint32_t parity = (hx.k >> 1) & 1;
+    for (uint32_t spins = 0;; ++spins) {
+      uint32_t done;
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+      if (done) break;
+      if (spins == (1u << 26)) __trap();  // a lost halo: fail, do not hang
+    }
+    ++hx.k;
   }
 }
 
-// Tent-shift bilinear advection of `field` (fh, fw) by the 2-tap centred
-// velocities of u (uh, uw) and v (vh, vw), D taps each way, exact-edge
-// zeroing, times `scale`.
-template <int D>
-__device__ void advect(const float* field, int fh, int fw, const float* u,
-                       int uw, const float* v, int vh, int vw, float dt,
-                       float scale, float* out) {
+// f + coef * (up + down + left + right - 4 f) with replicate padding over
+// the stripe's `nrows` rows of an (fh, fw) field, where f(i, j) = a[i, j]
+// + (j < add_cols ? add_coef * b[i, j] : 0) (the buoyancy term of v, folded
+// into the read; add_cols = 0 for a plain field).
+template <bool S>
+__device__ void diffuse(const Ctx& c, Plane<S> a, Plane<S> b, float add_coef,
+                        int add_cols, int fh, int fw, int nrows, float coef,
+                        Plane<S> out) {
+  for (int li = c.ty; li < nrows; li += c.by) {
+    const int i = c.r0 + li;
+    const int lu = clampi(i - 1, 0, fh - 1) - c.r0;
+    const int ld = clampi(i + 1, 0, fh - 1) - c.r0;
+    const float* am = a.row(c, li);
+    const float* au = a.row(c, lu);
+    const float* ad = a.row(c, ld);
+    const float* bm = b.row(c, li);
+    const float* bu = b.row(c, lu);
+    const float* bd = b.row(c, ld);
+    auto at = [&](const float* ar, const float* br, int j) -> float {
+      float x = ar[j];
+      if (j < add_cols) x = x + add_coef * br[j];
+      return x;
+    };
+    float* o = out.row(c, li);
+    for (int j = c.tx; j < fw; j += c.bx) {
+      float f = at(am, bm, j);
+      float up = at(au, bu, j);
+      float down = at(ad, bd, j);
+      float left = at(am, bm, clampi(j - 1, 0, fw - 1));
+      float right = at(am, bm, clampi(j + 1, 0, fw - 1));
+      float lap = up + down + left + right - 4.0f * f;
+      o[j] = f + coef * lap;
+    }
+  }
+}
+
+// One cell of the tent-shift bilinear advection: the (2D+1)^2 taps of
+// `field` around (i, j) for the back-traced point (py, px), with
+// exact-edge zeroing, times `scale`. tap_row(di) is the field's row
+// i + di (null beyond the grid).
+template <int D, typename TapRow>
+__device__ __forceinline__ float advect_cell(int i, int j, int fh, int fw,
+                                             float px, float py, int rad,
+                                             float scale, TapRow tap_row) {
+  const int R = D > 0 ? D : rad;
+  float acc = 0.0f;
+#pragma unroll
+  for (int di = -R; di <= R; ++di) {
+    const int ii = i + di;
+    const float wy = fmaxf(0.0f, 1.0f - fabsf(py - (float)ii));
+    const float* fr = tap_row(di);
+#pragma unroll
+    for (int dj = -R; dj <= R; ++dj) {
+      const int jj = j + dj;
+      const float wx = fmaxf(0.0f, 1.0f - fabsf(px - (float)jj));
+      const float tap = (fr != nullptr && jj >= 0 && jj < fw) ? fr[jj] : 0.0f;
+      acc = acc + wy * wx * tap;
+    }
+  }
+  const bool keep = (px < (float)(fw - 1)) && (py < (float)(fh - 1));
+  return (keep ? acc : 0.0f) * scale;
+}
+
+// Tent-shift advection of the stripe's `nrows` rows of `field` (fh, fw) by
+// the 2-tap centred velocities of u (row width uw) and v (vh rows), D taps
+// each way (D = 0: the runtime radius `rad`), times `scale`, into `out`
+// and, where given, into `traj` (a whole (fh, fw) plane in global memory).
+template <int D, bool S>
+__device__ void advect(const Ctx& c, int rad, Plane<S> field, int fh, int fw,
+                       int nrows, Plane<S> u, int uw, Plane<S> v, int vh,
+                       float dt, float scale, Plane<S> out, float* traj) {
   const int ucols = min(fw, uw - 1);
   const int vrows = min(fh, vh - 1);
-  for (int idx = threadIdx.x; idx < fh * fw; idx += blockDim.x) {
-    int i = idx / fw, j = idx - (idx / fw) * fw;
-    float ui = j < ucols ? 0.5f * (u[i * uw + j] + u[i * uw + j + 1]) : 0.0f;
-    float vi = i < vrows ? 0.5f * (v[i * vw + j] + v[(i + 1) * vw + j]) : 0.0f;
-    float px = fminf(fmaxf((float)j - dt * ui, 0.0f), (float)(fw - 1));
-    float py = fminf(fmaxf((float)i - dt * vi, 0.0f), (float)(fh - 1));
-    float acc = 0.0f;
+  for (int li = c.ty; li < nrows; li += c.by) {
+    const int i = c.r0 + li;
+    const float* ur = u.row(c, li);
+    const float* vr0 = v.row(c, li);
+    const float* vr1 = v.row(c, li + 1);  // read only where i < vrows
+    float* o = out.row(c, li);
+    float* tr = traj != nullptr ? traj + (long)i * fw : nullptr;
+    // the tap rows: looked up once per row for a compiled radius, per tap
+    // for the runtime one
+    const float* taps[D > 0 ? 2 * D + 1 : 1];
+    auto tap_row = [&](int di) -> const float* {
+      const int ii = i + di;
+      return (ii >= 0 && ii < fh) ? field.row(c, ii - c.r0) : nullptr;
+    };
+    if constexpr (D > 0) {
 #pragma unroll
-    for (int di = -D; di <= D; ++di) {
-      int ii = i + di;
-      float wy = fmaxf(0.0f, 1.0f - fabsf(py - (float)ii));
-#pragma unroll
-      for (int dj = -D; dj <= D; ++dj) {
-        int jj = j + dj;
-        float wx = fmaxf(0.0f, 1.0f - fabsf(px - (float)jj));
-        float tap = (ii >= 0 && ii < fh && jj >= 0 && jj < fw)
-                        ? field[ii * fw + jj] : 0.0f;
-        acc = acc + wy * wx * tap;
-      }
+      for (int k = 0; k < 2 * D + 1; ++k) taps[k] = tap_row(k - D);
     }
-    bool keep = (px < (float)(fw - 1)) && (py < (float)(fh - 1));
-    out[idx] = (keep ? acc : 0.0f) * scale;
+    for (int j = c.tx; j < fw; j += c.bx) {
+      float ui = j < ucols ? 0.5f * (ur[j] + ur[j + 1]) : 0.0f;
+      float vi = i < vrows ? 0.5f * (vr0[j] + vr1[j]) : 0.0f;
+      float px = fminf(fmaxf((float)j - dt * ui, 0.0f), (float)(fw - 1));
+      float py = fminf(fmaxf((float)i - dt * vi, 0.0f), (float)(fh - 1));
+      float r;
+      if constexpr (D > 0) {
+        r = advect_cell<D>(i, j, fh, fw, px, py, rad, scale,
+                           [&](int di) { return taps[di + D]; });
+      } else {
+        r = advect_cell<D>(i, j, fh, fw, px, py, rad, scale, tap_row);
+      }
+      o[j] = r;
+      if (tr != nullptr) tr[j] = r;
+    }
   }
 }
 
-// One whole step of one episode, by the whole block: reads (u0, v0, p0,
-// d0), writes (uo, vo, po, dout), which must not alias the inputs, and uses
-// `step_scratch` ((h+1)w + h(w+1) + 3hw floats). Ends without a barrier.
-template <int D>
-__device__ void step_body(const float* u0, const float* v0, const float* p0,
-                          const float* d0, float* uo, float* vo, float* po,
-                          float* dout, float* step_scratch, const Fields& s,
-                          int iters) {
-  const int h = s.h, w = s.w;
-  const int nu = (h + 1) * w, nv = h * (w + 1), nc = h * w;
-  float* su = step_scratch;
-  float* sv = su + nu;
-  float* sd = sv + nv;
-  float* div = sd + nc;
-  float* sp = div + nc;
-
-  // 1-2. buoyancy (folded into v's reads) and diffusion
-  diffuse(u0, nullptr, 0.0f, 0, 0, h + 1, w, s.coef_uv, su);
-  diffuse(v0, d0, s.buoy, w, w, h, w + 1, s.coef_uv, sv);
-  diffuse(d0, nullptr, 0.0f, 0, 0, h, w, s.coef_d, sd);
-  __syncthreads();
-
-  // 3a. divergence
-  for (int idx = threadIdx.x; idx < nc; idx += blockDim.x) {
-    int i = idx / w, j = idx - (idx / w) * w;
-    float dv = su[(i + 1) * w + j] - su[i * w + j] + sv[i * (w + 1) + j + 1]
-               - sv[i * (w + 1) + j];
-    div[idx] = dv / s.dt;
-  }
-  __syncthreads();
-
-  // 3b. Jacobi sweeps, zero-Dirichlet boundary re-imposed each sweep; the
-  // iterate ping-pongs between sp and po so the last sweep lands in po
-  // whatever the parity of `iters`.
-  const float* src = p0;
-  for (int it = 0; it < iters; ++it) {
-    float* dst = ((iters - it) & 1) ? po : sp;
-    for (int idx = threadIdx.x; idx < nc; idx += blockDim.x) {
-      int i = idx / w, j = idx - (idx / w) * w;
-      float r = 0.0f;
-      if (i > 0 && i < h - 1 && j > 0 && j < w - 1) {
-        r = 0.25f * (src[idx - w] + src[idx + w] + src[idx - 1] + src[idx + 1]
-                     - div[idx]);
-      }
-      dst[idx] = r;
+// Copies rows [lo, hi) (stripe-local) between a global (., fw) plane `g`
+// and a plane of the state.
+template <bool S>
+__device__ void copy_rows(const Ctx& c, float* g, int fw, int lo, int hi,
+                          Plane<S> pl, bool to_global) {
+  for (int li = lo + c.ty; li < hi; li += c.by) {
+    float* gr = g + (long)(c.r0 + li) * fw;
+    float* pr = pl.row(c, li);
+    for (int j = c.tx; j < fw; j += c.bx) {
+      if (to_global)
+        gr[j] = pr[j];
+      else
+        pr[j] = gr[j];
     }
-    __syncthreads();
+  }
+}
+
+// A Jacobi sweep (after the first) where w is a multiple of 4: four cells
+// of a row per thread, by 16-byte loads and stores, each cell summed as the
+// one-cell loop sums it. Rows are 16-byte aligned: slots start so, and the
+// planes of a sweep are w wide.
+template <bool S>
+__device__ void jacobi_sweep4(const Ctx& c, Plane<S> src, Plane<S> div,
+                              Plane<S> dst) {
+  const int h = c.h, w = src.stride;
+  for (int li = c.ty; li < c.n; li += c.by) {
+    const int i = c.r0 + li;
+    float4* o = reinterpret_cast<float4*>(dst.row(c, li));
+    if (!(i > 0 && i < h - 1)) {
+      for (int j = 4 * c.tx; j < w; j += 4 * c.bx)
+        o[j / 4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    const float* up = src.row(c, li - 1);
+    const float* mid = src.row(c, li);
+    const float* down = src.row(c, li + 1);
+    const float* dv = div.row(c, li);
+    for (int j = 4 * c.tx; j < w; j += 4 * c.bx) {
+      const float4 a = *reinterpret_cast<const float4*>(up + j);
+      const float4 b = *reinterpret_cast<const float4*>(down + j);
+      const float4 m = *reinterpret_cast<const float4*>(mid + j);
+      const float4 d = *reinterpret_cast<const float4*>(dv + j);
+      // mid[j - 1] and mid[j + 4] are the neighbours' rows' ends at the
+      // grid's edges, where the cell is 0 anyway
+      const float left = mid[j - 1], right = mid[j + 4];
+      float4 r;
+      r.x = j > 0 ? 0.25f * (a.x + b.x + left + m.y - d.x) : 0.0f;
+      r.y = 0.25f * (a.y + b.y + m.x + m.z - d.y);
+      r.z = 0.25f * (a.z + b.z + m.y + m.w - d.z);
+      r.w = j + 3 < w - 1 ? 0.25f * (a.w + b.w + m.z + right - d.w) : 0.0f;
+      o[j / 4] = r;
+    }
+  }
+}
+
+// The slots of the state's roles; f1 and f2 are free between steps.
+struct Roles {
+  float *u, *v, *p, *d, *f1, *f2;
+};
+
+// One whole step of the cluster's episode, each stage ending in
+// end_stage. Rotates the roles so that on return they hold the new state.
+template <int D, bool S>
+__device__ void step(const Ctx& c, const Params& p, Roles& sl, Halos& hx,
+                     float* traj) {
+  const int h = p.h, w = p.w;
+  const Plane<S> u{sl.u, w}, v{sl.v, w + 1}, d{sl.d, w};
+  const Plane<S> su{sl.f1, w}, sv{sl.f2, w + 1};
+
+  // 1. buoyancy (folded into v's reads) and the diffusion of u and v
+  diffuse<S>(c, u, u, 0.0f, 0, h + 1, w, c.nu, p.coef_uv, su);
+  diffuse<S>(c, v, d, p.buoy, w, h, w + 1, c.n, p.coef_uv, sv);
+  const Written<S> w1[2] = {{su, w, true}, {sv, w + 1, false}};
+  end_stage<S>(c, hx, w1, 2);
+
+  // 2. Jacobi sweeps, zero-Dirichlet boundary re-imposed each sweep, the
+  // iterate ping-ponging between p's slot and v's (v is read no more); the
+  // first sweep forms the divergence, kept in u's slot for the others
+  const Plane<S> div{sl.u, w};
+  Plane<S> src{sl.p, w}, dst{sl.v, w};
+  for (int it = 0; it < p.iters; ++it) {
+    if (it > 0 && w % 4 == 0) {
+      jacobi_sweep4<S>(c, src, div, dst);
+      const Written<S> w2{dst, w, false};
+      end_stage<S>(c, hx, &w2, 1);
+      const Plane<S> t = src;
+      src = dst;
+      dst = t;
+      continue;
+    }
+    for (int li = c.ty; li < c.n; li += c.by) {
+      const int i = c.r0 + li;
+      const bool inner_row = i > 0 && i < h - 1;
+      const float* up = src.row(c, li - 1);  // read only on inner rows
+      const float* mid = src.row(c, li);
+      const float* down = src.row(c, li + 1);
+      const float* s0 = su.row(c, li);
+      const float* s1 = su.row(c, li + 1);
+      const float* v0 = sv.row(c, li);
+      float* dv = div.row(c, li);
+      float* o = dst.row(c, li);
+      for (int j = c.tx; j < w; j += c.bx) {
+        float dvj;
+        if (it == 0) {
+          dvj = (s1[j] - s0[j] + v0[j + 1] - v0[j]) / p.dt;
+          dv[j] = dvj;
+        } else {
+          dvj = dv[j];
+        }
+        float r = 0.0f;
+        if (inner_row && j > 0 && j < w - 1)
+          r = 0.25f * (up[j] + down[j] + mid[j - 1] + mid[j + 1] - dvj);
+        o[j] = r;
+      }
+    }
+    const Written<S> w2{dst, w, false};
+    end_stage<S>(c, hx, &w2, 1);
+    const Plane<S> t = src;
     src = dst;
+    dst = t;
   }
-  if (iters == 0) {
-    for (int idx = threadIdx.x; idx < nc; idx += blockDim.x) po[idx] = p0[idx];
-    __syncthreads();
-  }
+  float* const p_new = src.base;  // the final p
+  float* const spare = dst.base;  // the other of p's and v's slots
 
-  // 3c. interior velocity correction, in place (each cell reads only itself)
-  for (int idx = threadIdx.x; idx < nu; idx += blockDim.x) {
-    int i = idx / w, j = idx - (idx / w) * w;
-    if (i > 0 && i < h) su[idx] = su[idx] - s.dt * (po[i * w + j] - po[(i - 1) * w + j]);
+  // 3. interior velocity correction, in place (each cell reads only itself
+  // of su and sv), and the diffusion of the density into u's slot (the
+  // divergence is read no more)
+  const Plane<S> pf{p_new, w};
+  for (int li = c.ty; li < c.nu; li += c.by) {
+    const int i = c.r0 + li;
+    if (i > 0 && i < h) {
+      const float* pm = pf.row(c, li);
+      const float* pu = pf.row(c, li - 1);
+      float* s = su.row(c, li);
+      for (int j = c.tx; j < w; j += c.bx) s[j] = s[j] - p.dt * (pm[j] - pu[j]);
+    }
   }
-  for (int idx = threadIdx.x; idx < nv; idx += blockDim.x) {
-    int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
-    if (j > 0 && j < w) sv[idx] = sv[idx] - s.dt * (po[i * w + j] - po[i * w + j - 1]);
+  for (int li = c.ty; li < c.n; li += c.by) {
+    const float* pm = pf.row(c, li);
+    float* s = sv.row(c, li);
+    for (int j = c.tx; j < w + 1; j += c.bx)
+      if (j > 0 && j < w) s[j] = s[j] - p.dt * (pm[j] - pm[j - 1]);
   }
-  __syncthreads();
+  const Plane<S> sd{sl.u, w};
+  diffuse<S>(c, d, d, 0.0f, 0, h, w, c.n, p.coef_d, sd);
+  const Written<S> w3[3] = {{su, w, true}, {sv, w + 1, false}, {sd, w, false}};
+  end_stage<S>(c, hx, w3, 3);
 
-  // 4. sequential advection: u by (u, v); v by (new u, v); d by (new u, new v)
-  advect<D>(su, h + 1, w, su, w, sv, h, w + 1, s.dt, 1.0f, uo);
-  __syncthreads();
-  advect<D>(sv, h, w + 1, uo, w, sv, h, w + 1, s.dt, 1.0f, vo);
-  __syncthreads();
-  // 5. density decay folded into the last advection
-  advect<D>(sd, h, w, uo, w, vo, h, w + 1, s.dt, 0.995f, dout);
+  // 4. sequential advection: u by (u, v) into d's slot; v by (new u, v)
+  // into the spare; d by (new u, new v) into su's slot, with 5. the density
+  // decay
+  const Plane<S> un{sl.d, w}, vn{spare, w + 1}, dn{sl.f1, w};
+  advect<D, S>(c, p.max_disp, su, h + 1, w, c.nu, su, w, sv, h, p.dt, 1.0f,
+               un, nullptr);
+  const Written<S> w4{un, w, true};
+  end_stage<S>(c, hx, &w4, 1);
+  advect<D, S>(c, p.max_disp, sv, h, w + 1, c.n, un, w, sv, h, p.dt, 1.0f,
+               vn, nullptr);
+  const Written<S> w5{vn, w + 1, false};
+  end_stage<S>(c, hx, &w5, 1);
+  advect<D, S>(c, p.max_disp, sd, h, w, c.n, un, w, vn, h, p.dt, 0.995f, dn,
+               traj);
+  const Written<S> w6{dn, w, false};
+  end_stage<S>(c, hx, &w6, 1);
+
+  sl = Roles{sl.d, spare, p_new, sl.f1, sl.f2, sl.u};
 }
 
-__host__ __device__ inline long step_scratch_floats(int h, int w) {
-  return (long)(h + 1) * w + (long)h * (w + 1) + 3L * h * w;
-}
+// Each cluster takes episodes cluster_id, + clusters, ...: loads its state
+// (and, in the shared mode, the halo rows), runs `steps` steps (traj[e, t]
+// written after each when traj is given), writes the final state.
+template <int D, bool S>
+__device__ void run(const Params& p) {
+  extern __shared__ float smem[];
+  const int h = p.h, w = p.w;
+  Ctx c;
+  c.h = h;
+  c.rows = p.rows;
+  c.halo = S ? max(p.max_disp, 1) : 0;
+  c.rank = cluster_ctarank();
+  c.csize = cluster_nctarank();
+  c.r0 = (int)c.rank * p.rows;
+  c.n = min(p.rows, h - c.r0);
+  c.nu = c.n + (c.rank + 1 == c.csize ? 1 : 0);
+  c.tx = threadIdx.x;
+  c.ty = threadIdx.y;
+  c.bx = blockDim.x;
+  c.by = blockDim.y;
 
-template <int D>
-__global__ void __launch_bounds__(1024)
-fused_step_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
-                  const float* __restrict__ p_in, const float* __restrict__ d_in,
-                  float* u_out, float* v_out, float* p_out, float* d_out,
-                  float* scratch, Fields s, int iters) {
-  const int h = s.h, w = s.w;
-  const long nu = (h + 1) * w, nv = h * (w + 1), nc = h * w;
-  const long e = blockIdx.x;
-  step_body<D>(u_in + e * nu, v_in + e * nv, p_in + e * nc, d_in + e * nc,
-               u_out + e * nu, v_out + e * nv, p_out + e * nc, d_out + e * nc,
-               scratch + e * step_scratch_floats(h, w), s, iters);
-}
-
-// `steps` whole steps of one episode per block (fused_multi_step_pallas).
-// The state ping-pongs between the outputs and a second set in scratch,
-// chosen so that the last step writes the outputs; the inputs are only
-// read. After each step the density goes to traj[e, t].
-template <int D>
-__global__ void __launch_bounds__(1024)
-fused_multi_step_kernel(const float* u_in, const float* v_in, const float* p_in,
-                        const float* d_in, float* u_out, float* v_out,
-                        float* p_out, float* d_out, float* traj, float* scratch,
-                        Fields s, int iters, int steps) {
-  const int h = s.h, w = s.w;
-  const long nu = (h + 1) * w, nv = h * (w + 1), nc = h * w;
-  const long e = blockIdx.x;
-  float* step_scratch = scratch + e * (step_scratch_floats(h, w) + nu + nv + 2 * nc);
-  float* ua = step_scratch + step_scratch_floats(h, w);
-  float* va = ua + nu;
-  float* pa = va + nv;
-  float* da = pa + nc;
-  float* uo = u_out + e * nu;
-  float* vo = v_out + e * nv;
-  float* po = p_out + e * nc;
-  float* dout = d_out + e * nc;
-  const float* cu = u_in + e * nu;
-  const float* cv = v_in + e * nv;
-  const float* cp = p_in + e * nc;
-  const float* cd = d_in + e * nc;
-  for (int t = 0; t < steps; ++t) {
-    const bool to_out = ((steps - 1 - t) & 1) == 0;
-    float* nu_ = to_out ? uo : ua;
-    float* nv_ = to_out ? vo : va;
-    float* np_ = to_out ? po : pa;
-    float* nd_ = to_out ? dout : da;
-    step_body<D>(cu, cv, cp, cd, nu_, nv_, np_, nd_, step_scratch, s, iters);
-    __syncthreads();
-    float* tr = traj + (e * steps + t) * nc;
-    for (long idx = threadIdx.x; idx < nc; idx += blockDim.x) tr[idx] = nd_[idx];
-    cu = nu_;
-    cv = nv_;
-    cp = np_;
-    cd = nd_;
+  // shared mode: two mbarriers at the start of dynamic shared memory (the
+  // halos of even and odd stages), the slots after them
+  Halos hx{smem_u32(smem), 0};
+  if (S && threadIdx.x == 0 && threadIdx.y == 0) {
+    asm volatile(
+        "mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
+        "mbarrier.init.shared::cta.b64 [%1], 1;\n\t"
+        "fence.mbarrier_init.release.cluster;" :: "r"(hx.bar), "r"(hx.bar + 8)
+        : "memory");
   }
+  const long slot = slot_floats(S, p.rows, c.halo, h, w);
+  float* b = S ? smem + kBarBytes / 4
+               : p.scratch + (long)cluster_id() * kSlots * slot;
+  Roles sl{b, b + slot, b + 2 * slot, b + 3 * slot, b + 4 * slot,
+           b + 5 * slot};
+
+  // stripe-local rows to load: the own rows and, shared, the halos
+  const int top = max(-c.halo, -c.r0);
+  const int ubot = min(c.nu + c.halo, h + 1 - c.r0);
+  const int cbot = min(c.n + c.halo, h - c.r0);
+  const long nu = (long)(h + 1) * w, nv = (long)h * (w + 1), nc = (long)h * w;
+  cluster_barrier();  // every CTA of the cluster runs, its mbarriers set up
+  for (long e = cluster_id(); e < p.episodes; e += cluster_count()) {
+    copy_rows<S>(c, const_cast<float*>(p.u) + e * nu, w, top, ubot,
+                 Plane<S>{sl.u, w}, false);
+    copy_rows<S>(c, const_cast<float*>(p.v) + e * nv, w + 1, top, cbot,
+                 Plane<S>{sl.v, w + 1}, false);
+    copy_rows<S>(c, const_cast<float*>(p.p) + e * nc, w, top, cbot,
+                 Plane<S>{sl.p, w}, false);
+    copy_rows<S>(c, const_cast<float*>(p.d) + e * nc, w, top, cbot,
+                 Plane<S>{sl.d, w}, false);
+    if constexpr (S)
+      __syncthreads();  // the halos came from global memory too
+    else
+      cluster_barrier();
+    for (int t = 0; t < p.steps; ++t)
+      step<D, S>(c, p, sl, hx,
+                 p.traj != nullptr ? p.traj + (e * p.steps + t) * nc : nullptr);
+    copy_rows<S>(c, p.uo + e * nu, w, 0, c.nu, Plane<S>{sl.u, w}, true);
+    copy_rows<S>(c, p.vo + e * nv, w + 1, 0, c.n, Plane<S>{sl.v, w + 1}, true);
+    copy_rows<S>(c, p.po + e * nc, w, 0, c.n, Plane<S>{sl.p, w}, true);
+    copy_rows<S>(c, p.dout + e * nc, w, 0, c.n, Plane<S>{sl.d, w}, true);
+  }
+  if constexpr (S) cluster_barrier();  // no CTA leaves while others may store into it
+}
+
+template <int D, bool S>
+__global__ void __launch_bounds__(kMaxThreads, 1) fused_step_kernel(Params p) {
+  run<D, S>(p);
+}
+
+// The same body over `steps` steps (fused_multi_step_pallas).
+template <int D, bool S>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fused_multi_step_kernel(Params p) {
+  run<D, S>(p);
+}
+
+using KernelFn = void (*)(Params);
+
+// One instantiation and the attributes set on it so far.
+struct Instance {
+  KernelFn fn;
+  int smem_set;
+  bool nonportable_set;
+};
+
+// Tap radii 1 and 2 are compiled in; any other takes the runtime radius.
+Instance& instance_for(int multi, int shared, int max_disp) {
+  static Instance table[2][2][3] = {
+      {{{fused_step_kernel<1, false>}, {fused_step_kernel<2, false>},
+        {fused_step_kernel<0, false>}},
+       {{fused_step_kernel<1, true>}, {fused_step_kernel<2, true>},
+        {fused_step_kernel<0, true>}}},
+      {{{fused_multi_step_kernel<1, false>},
+        {fused_multi_step_kernel<2, false>},
+        {fused_multi_step_kernel<0, false>}},
+       {{fused_multi_step_kernel<1, true>}, {fused_multi_step_kernel<2, true>},
+        {fused_multi_step_kernel<0, true>}}},
+  };
+  const int k = max_disp == 1 ? 0 : (max_disp == 2 ? 1 : 2);
+  return table[multi != 0][shared != 0][k];
+}
+
+// Dynamic shared memory and the non-portable cluster size, set on each
+// instantiation as its launches need them (the largest size asked so far).
+cudaError_t configure(Instance& k, int smem, int cluster) {
+  cudaError_t e = cudaSuccess;
+  if (smem > k.smem_set) {
+    e = cudaFuncSetAttribute((const void*)k.fn,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    k.smem_set = smem;
+  }
+  if (cluster > 8 && !k.nonportable_set) {
+    e = cudaFuncSetAttribute((const void*)k.fn,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    k.nonportable_set = true;
+  }
+  return e;
+}
+
+cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int cluster,
+                                 int clusters, int bx, int by, int smem,
+                                 cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * clusters, 1, 1);
+  cfg.blockDim = dim3(bx, by, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool plan_ok(int h, int w, int max_disp, int cluster, int rows, int bx, int by,
+             int smem, int shared) {
+  if (cluster < 1 || cluster > kMaxCluster || rows < 1) return false;
+  if (bx < 32 || bx % 32 != 0 || by < 1 || bx * by > kMaxThreads) return false;
+  // the stripes cover the grid exactly, none empty
+  if ((long)rows * cluster < h || (long)rows * (cluster - 1) >= h) return false;
+  // a tap reaches no further than the neighbouring stripe
+  if (cluster > 1 && rows < max_disp + 2) return false;
+  if (shared)
+    return smem >= kBarBytes + kSlots * slot_floats(1, rows, max(max_disp, 1), h, w) * 4 &&
+           smem <= kMaxSmem;
+  return smem == 0;
+}
+
+int launch(int multi, const Params& prm, int cluster, int clusters, int bx,
+           int by, int smem, int shared, void* stream) {
+  if (prm.episodes <= 0 || prm.h < 2 || prm.w < 2 || prm.iters < 0 ||
+      prm.steps < 1 || prm.max_disp < 1 || clusters < 1 ||
+      !plan_ok(prm.h, prm.w, prm.max_disp, cluster, prm.rows, bx, by, smem,
+               shared) ||
+      (!shared && prm.scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Instance& k = instance_for(multi, shared, prm.max_disp);
+  cudaError_t e = configure(k, smem, cluster);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(attr, cluster, clusters, bx, by, smem,
+                                         (cudaStream_t)stream);
+  Params p = prm;
+  void* args[] = {&p};
+  e = cudaLaunchKernelExC(&cfg, (const void*)k.fn, args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch one solver step for `episodes` independent states laid out one
-// after another. scratch holds episodes * ((h+1)w + h(w+1) + 3hw) floats.
+// How many clusters of this shape fit the card at once, into *out. A
+// failed query is cleared, so that it does not surface at a later launch.
+extern "C" int fused_step_max_active_clusters(int multi, int shared,
+                                              int max_disp, int cluster,
+                                              int bx, int by, int smem,
+                                              int* out) {
+  Instance& k = instance_for(multi, shared, max_disp);
+  cudaError_t e = configure(k, smem, cluster);
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = launch_config(attr, cluster, 1, bx, by, smem, 0);
+    e = cudaOccupancyMaxActiveClusters(out, (const void*)k.fn, &cfg);
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// One solver step for `episodes` independent states laid out one after
+// another, by the plan's clusters (ops/fused_step.py, plan_launch). scratch:
+// null in the shared mode, else clusters * 6 (h + 1)(w + 1) floats.
 extern "C" int fused_step_launch(const void* u, const void* v, const void* p,
                                  const void* d, void* u_out, void* v_out,
                                  void* p_out, void* d_out, void* scratch,
                                  int episodes, int h, int w, int iters,
                                  int max_disp, float dt, float buoy,
-                                 float coef_uv, float coef_d, void* stream) {
-  if (episodes <= 0 || h < 2 || w < 2 || iters < 0) return (int)cudaErrorInvalidValue;
-  Fields s{h, w, dt, buoy, coef_uv, coef_d};
-  cudaStream_t st = (cudaStream_t)stream;
-  auto args = [&](auto kernel) {
-    kernel<<<episodes, 1024, 0, st>>>(
-        (const float*)u, (const float*)v, (const float*)p, (const float*)d,
-        (float*)u_out, (float*)v_out, (float*)p_out, (float*)d_out,
-        (float*)scratch, s, iters);
-  };
-  switch (max_disp) {
-    case 1: args(fused_step_kernel<1>); break;
-    case 2: args(fused_step_kernel<2>); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                                 float coef_uv, float coef_d, int cluster,
+                                 int clusters, int rows, int bx, int by,
+                                 int smem, int shared, void* stream) {
+  Params prm{(const float*)u, (const float*)v, (const float*)p,
+             (const float*)d, (float*)u_out, (float*)v_out, (float*)p_out,
+             (float*)d_out, nullptr, (float*)scratch, episodes, h, w, iters,
+             1, max_disp, dt, buoy, coef_uv, coef_d, rows};
+  return launch(0, prm, cluster, clusters, bx, by, smem, shared, stream);
 }
 
-// Launch `steps` solver steps for `episodes` states in one kernel; traj is
-// [episodes, steps, h, w]. scratch holds episodes * (2(h+1)w + 2h(w+1) + 5hw)
-// floats (a step's scratch plus the second state set).
+// `steps` solver steps for `episodes` states in one kernel; traj is
+// [episodes, steps, h, w]. The inputs are only read.
 extern "C" int fused_multi_step_launch(
     const void* u, const void* v, const void* p, const void* d, void* u_out,
     void* v_out, void* p_out, void* d_out, void* traj, void* scratch,
     int episodes, int h, int w, int iters, int max_disp, int steps, float dt,
-    float buoy, float coef_uv, float coef_d, void* stream) {
-  if (episodes <= 0 || h < 2 || w < 2 || iters < 0 || steps < 1)
-    return (int)cudaErrorInvalidValue;
-  Fields s{h, w, dt, buoy, coef_uv, coef_d};
-  cudaStream_t st = (cudaStream_t)stream;
-  auto args = [&](auto kernel) {
-    kernel<<<episodes, 1024, 0, st>>>(
-        (const float*)u, (const float*)v, (const float*)p, (const float*)d,
-        (float*)u_out, (float*)v_out, (float*)p_out, (float*)d_out,
-        (float*)traj, (float*)scratch, s, iters, steps);
-  };
-  switch (max_disp) {
-    case 1: args(fused_multi_step_kernel<1>); break;
-    case 2: args(fused_multi_step_kernel<2>); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+    float buoy, float coef_uv, float coef_d, int cluster, int clusters,
+    int rows, int bx, int by, int smem, int shared, void* stream) {
+  if (traj == nullptr) return (int)cudaErrorInvalidValue;
+  Params prm{(const float*)u, (const float*)v, (const float*)p,
+             (const float*)d, (float*)u_out, (float*)v_out, (float*)p_out,
+             (float*)d_out, (float*)traj, (float*)scratch, episodes, h, w,
+             iters, steps, max_disp, dt, buoy, coef_uv, coef_d, rows};
+  return launch(1, prm, cluster, clusters, bx, by, smem, shared, stream);
 }

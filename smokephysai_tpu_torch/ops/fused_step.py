@@ -7,12 +7,23 @@ advection, decay) in one kernel launch for a CUDA state, and
 floating-point operations. `fused_multi_step` runs a whole episode of steps
 in one launch (`fused_multi_step_pallas`) and returns the density
 trajectory; its plain version is a loop of `fused_step_reference`. A
-leading batch of episodes is allowed.
+leading batch of episodes is allowed, and any positive tap radius
+`max_disp`.
+
+The kernels run each episode on one thread-block cluster, one row stripe
+per CTA. `plan_launch` (pure Python) chooses the cluster size, the rows
+and threads per CTA, the shared memory and the mode: "shared" keeps the
+state in the cluster's shared memory, "global" (grids whose state does
+not fit it, e.g. 512^2 and 1024^2) in global scratch. `launch_plan` is
+the plan a CUDA call takes, with the card's own count of the clusters that
+fit it at once.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from dataclasses import dataclass
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +38,6 @@ SOURCE = "fused_step.cu"
 # no FMA contraction: every stage rounds as the plain version's separate
 # multiply and add do, so the kernel matches it to the last bit or so
 FLAGS = ("-fmad=false",)
-MAX_DISP = (1, 2)  # tap radii compiled into the kernel
 
 LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
 MULTI_LAUNCHES = 0  # fused_multi_step launches, likewise
@@ -111,6 +121,157 @@ def fused_step_reference(
     return u_new, v_new, p, d_new * 0.995
 
 
+# ---------------------------------------------------------------- launch plan
+
+SMEM_MAX = 232_448  # dynamic shared memory one CTA can have on an H100
+MAX_CLUSTER = 16    # CTAs per cluster (the non-portable size)
+MAX_THREADS = 1024  # threads per CTA (the kernels' launch bound)
+ROW_THREADS = (32, 64)  # threads along a row: one warp or two
+SLOTS = 6           # planes of the state and its intermediates
+BAR_BYTES = 16      # the shared mode's two mbarriers
+MAX_INT = 2 ** 31 - 1  # the launchers take sizes and rows as 32-bit ints
+
+
+def _round4(floats: int) -> int:
+    """A slot's floats, rounded up so that every slot starts 16-byte aligned."""
+    return -(-floats // 4) * 4
+
+
+def stripe_floats(rows: int, w: int, max_disp: int) -> int:
+    """Floats of one CTA's stripes of the 6 planes in the shared mode: each
+    `rows` rows and max(max_disp, 1) halo rows above and below, w + 1
+    wide (u, v, p and the density all fit)."""
+    return SLOTS * _round4((rows + 2 * max(max_disp, 1)) * (w + 1))
+
+
+def stripe_bytes(rows: int, w: int, max_disp: int) -> int:
+    """Dynamic shared memory of one CTA in the shared mode: the stripes and
+    two mbarriers (the halos' arrivals, even and odd stages)."""
+    return BAR_BYTES + 4 * stripe_floats(rows, w, max_disp)
+
+
+def plane_set_floats(h: int, w: int) -> int:
+    """Floats of one cluster's 6 whole planes in the global mode."""
+    return SLOTS * _round4((h + 1) * (w + 1))
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one call of the fused kernels is cut: `cluster` CTAs per episode,
+    each owning `rows` rows of the grid (the last CTA what is left, and u's
+    row h); `clusters` clusters launched, each taking episodes in turn;
+    `bx` x `by` threads per CTA; `smem_bytes` of dynamic shared memory per
+    CTA in the "shared" mode; `scratch_floats` of global scratch in the
+    "global" mode."""
+
+    mode: str
+    cluster: int
+    clusters: int
+    rows: int
+    bx: int
+    by: int
+    smem_bytes: int
+    scratch_floats: int
+
+    @property
+    def threads(self) -> int:
+        return self.bx * self.by
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster * self.clusters
+
+    @property
+    def args(self):
+        """The launchers' plan arguments."""
+        return (self.cluster, self.clusters, self.rows, self.bx, self.by,
+                self.smem_bytes, int(self.mode == "shared"))
+
+    def describe(self) -> str:
+        return (f"{self.mode} mode, cluster {self.cluster} x {self.clusters} "
+                f"clusters = {self.ctas} CTAs of {self.bx}x{self.by} threads, "
+                f"{self.rows} rows per CTA, {self.smem_bytes} B shared memory "
+                f"per CTA, {self.scratch_floats * 4} B global scratch")
+
+
+# (cluster, bx, by, smem_bytes, mode) -> clusters that fit the card at once
+ActiveCount = Callable[[int, int, int, int, str], int]
+
+
+def _row_threads(rows: int, by_max: int):
+    """Thread rows per CTA to try: each a count that splits the stripe's
+    rows into equal passes, from the most threads to one row."""
+    out, passes = [], -(-rows // by_max)
+    while True:
+        by = -(-rows // passes)
+        if not out or by < out[-1]:
+            out.append(by)
+        if by == 1:
+            return out
+        passes *= 2
+
+
+def plan_candidates(episodes: int, h: int, w: int, max_disp: int,
+                    max_active_clusters: ActiveCount, mode: str):
+    """Every plan of `mode` ("shared" or "global") that the card can
+    launch: each cluster size that cuts the grid into its own stripes of at
+    least max_disp + 2 rows (in the shared mode, of at most SMEM_MAX bytes),
+    each row width of ROW_THREADS and each count of thread rows, with as
+    many clusters as fit at once (`max_active_clusters`), at most one per
+    episode."""
+    for cluster in range(MAX_CLUSTER, 0, -1):
+        rows = max(-(-h // cluster), max_disp + 2)
+        if -(-h // rows) != cluster:  # a smaller cluster cuts the same stripes
+            continue
+        smem = stripe_bytes(rows, w, max_disp) if mode == "shared" else 0
+        if smem > SMEM_MAX:
+            continue
+        for bx in ROW_THREADS:
+            for by in _row_threads(rows, MAX_THREADS // bx):
+                active = max_active_clusters(cluster, bx, by, smem, mode)
+                if active < 1:
+                    continue
+                clusters = min(episodes, active)
+                yield LaunchPlan(
+                    mode=mode, cluster=cluster, clusters=clusters, rows=rows, bx=bx, by=by,
+                    smem_bytes=smem,
+                    scratch_floats=clusters * plane_set_floats(h, w) if mode == "global" else 0)
+
+
+def plan_launch(episodes: int, h: int, w: int, max_disp: int,
+                max_active_clusters: ActiveCount) -> LaunchPlan:
+    """The launch plan of the fused kernels for `episodes` states of an
+    h x w grid at tap radius `max_disp`.
+
+    `max_active_clusters(cluster, bx, by, smem_bytes, mode)` says how many
+    clusters of that shape fit the card at once (on the card,
+    cudaOccupancyMaxActiveClusters). The state stays in shared memory
+    ("shared" mode) where some cluster size gives stripes of at most
+    SMEM_MAX bytes; otherwise the planes live in global scratch ("global").
+    Among the mode's candidates (`plan_candidates`), the plan takes the
+    fewest waves of clusters over the episodes, then the largest cluster,
+    then the most threads, then the narrower rows of threads (one warp or
+    two along a grid row). Every CTA has at least max_disp + 2 rows of
+    room, so an advection tap reaches no further than the neighbouring
+    stripe, and at most as many clusters are launched as fit at once; each
+    takes episodes in turn."""
+    if episodes < 1 or h < 2 or w < 2:
+        raise ValueError(f"plan_launch: need episodes >= 1 and a grid of at least "
+                         f"2x2, got {episodes} of {h}x{w}")
+    if not (isinstance(max_disp, (int, np.integer)) and max_disp >= 1):
+        raise ValueError(f"plan_launch: max_disp must be a positive integer, got {max_disp!r}")
+    if max(h + 1, w + 1, max_disp + 2) > MAX_INT:
+        raise ValueError(f"plan_launch: a {h}x{w} grid at max_disp {max_disp} needs rows of "
+                         f"room (max_disp + 2) past the kernels' limit of {MAX_INT}")
+    for mode in ("shared", "global"):
+        plans = list(plan_candidates(episodes, h, w, max_disp, max_active_clusters, mode))
+        if plans:
+            return min(plans, key=lambda pl: (-(-episodes // pl.clusters), -pl.cluster,
+                                              -pl.threads, pl.bx))
+    raise ValueError(f"plan_launch: no cluster shape fits the card for {episodes} "
+                     f"episodes of {h}x{w}")
+
+
 # ---------------------------------------------------------------- the kernel
 
 
@@ -118,11 +279,54 @@ def _lib():
     ptrs = [ctypes.c_void_p] * 9
     ints = [ctypes.c_int] * 5
     floats = [ctypes.c_float] * 4
+    plan = [ctypes.c_int] * 7
     return _build.load(SOURCE, FLAGS, {
-        "fused_step_launch": ptrs + ints + floats + [ctypes.c_void_p],
+        "fused_step_launch": ptrs + ints + floats + plan + [ctypes.c_void_p],
         "fused_multi_step_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-        + floats + [ctypes.c_void_p],
+        + floats + plan + [ctypes.c_void_p],
+        "fused_step_max_active_clusters": [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int)],
     })
+
+
+def card_active_clusters(index: int, multi: bool, max_disp: int) -> ActiveCount:
+    """`max_active_clusters` for `plan_launch` on card `index`: the kernel's
+    cudaOccupancyMaxActiveClusters (the C entry
+    fused_step_max_active_clusters), each shape asked once."""
+    lib = _lib()
+    queried = {}
+
+    def count(cluster, bx, by, smem_bytes, mode):
+        q = (cluster, bx, by, smem_bytes, mode)
+        if q not in queried:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(index):
+                rc = lib.fused_step_max_active_clusters(
+                    int(multi), int(mode == "shared"), max_disp, cluster, bx, by, smem_bytes,
+                    ctypes.byref(out))
+            queried[q] = out.value if rc == 0 else 0
+        return queried[q]
+
+    return count
+
+
+_PLANS = {}  # (device index, multi, episodes, h, w, max_disp) -> LaunchPlan
+
+
+def launch_plan(episodes: int, h: int, w: int, max_disp: int, multi: bool = False,
+                device=None) -> LaunchPlan:
+    """The plan a CUDA call of `fused_step` (or, with `multi`,
+    `fused_multi_step`) takes on `device` (default: the current card),
+    with the card's count of the clusters that fit it at once."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, bool(multi), episodes, h, w, max_disp)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = plan_launch(episodes, h, w, max_disp,
+                           card_active_clusters(index, multi, max_disp))
+        _PLANS[key] = plan
+    return plan
 
 
 def _check(u: Tensor, v: Tensor, p: Tensor, density: Tensor):
@@ -163,8 +367,8 @@ def fused_multi_step_reference(
 def _check_launch(name: str, density: Tensor, max_disp: int, num_jacobi_iters: int):
     if density.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {density.device}")
-    if max_disp not in MAX_DISP:
-        raise ValueError(f"{name}: max_disp must be one of {MAX_DISP}")
+    if not (isinstance(max_disp, (int, np.integer)) and max_disp >= 1):
+        raise ValueError(f"{name}: max_disp must be a positive integer, got {max_disp!r}")
     if num_jacobi_iters < 0:
         raise ValueError(f"{name}: num_jacobi_iters must be >= 0")
     h, w = density.shape[-2], density.shape[-1]
@@ -174,15 +378,53 @@ def _check_launch(name: str, density: Tensor, max_disp: int, num_jacobi_iters: i
     return h, w, episodes
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_scalars(dt: float, viscosity: float):
+    return tuple(float(x) for x in _coefs(dt, viscosity))
+
+
+def _launch(u: Tensor, v: Tensor, p: Tensor, density: Tensor, num_steps, dt: float,
+            viscosity: float, num_jacobi_iters: int, max_disp: int, plan: LaunchPlan):
+    """Launches the single-step kernel (num_steps None) or the multi-step
+    kernel as `plan` cuts it, on checked CUDA fields. Returns the new
+    (u, v, p, density) and, for the multi-step kernel, the trajectory."""
+    h, w = density.shape[-2], density.shape[-1]
+    episodes = density.numel() // (h * w)
+    outs = [torch.empty_like(t) for t in (u, v, p, density)]
+    scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=density.device)
+               if plan.mode == "global" else None)
+    ptrs = [t.data_ptr() for t in (u, v, p, density, *outs)]
+    scratch_ptr = None if scratch is None else scratch.data_ptr()
+    stream = torch.cuda.current_stream(density.device).cuda_stream
+    if num_steps is None:
+        traj = None
+        rc = _lib().fused_step_launch(*ptrs, scratch_ptr, episodes, h, w, num_jacobi_iters,
+                                      max_disp, *_launch_scalars(dt, viscosity), *plan.args,
+                                      stream)
+    else:
+        traj = torch.empty(*density.shape[:-2], num_steps, h, w, dtype=torch.float32,
+                           device=density.device)
+        rc = _lib().fused_multi_step_launch(*ptrs, traj.data_ptr(), scratch_ptr, episodes, h,
+                                            w, num_jacobi_iters, max_disp, num_steps,
+                                            *_launch_scalars(dt, viscosity), *plan.args,
+                                            stream)
+    if rc != 0:
+        kernel = "fused_step" if num_steps is None else "fused_multi_step"
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc} "
+                           f"({plan.describe()})")
+    return tuple(outs), traj
+
+
 def fused_multi_step(
     u: Tensor, v: Tensor, p: Tensor, density: Tensor, num_steps: int,
     dt: float, viscosity: float,
     num_jacobi_iters: int = 20, max_disp: int = 1,
 ) -> Tuple[Tuple[Tensor, Tensor, Tensor, Tensor], Tensor]:
     """`num_steps` solver steps. CUDA tensors launch the multi-step kernel
-    once (one block per episode of the leading batch); CPU tensors take
-    `fused_multi_step_reference`. Returns the final (u, v, p, density) and
-    the trajectory [..., num_steps, H, W]; the inputs are not modified."""
+    once (one cluster per episode of the leading batch at a time, cut by
+    `launch_plan`); CPU tensors take `fused_multi_step_reference`. Returns
+    the final (u, v, p, density) and the trajectory [..., num_steps, H, W];
+    the inputs are not modified."""
     global MULTI_LAUNCHES
     _check(u, v, p, density)
     if num_steps < 1:
@@ -192,25 +434,11 @@ def fused_multi_step(
                                           viscosity, num_jacobi_iters, max_disp)
     h, w, episodes = _check_launch("fused_multi_step", density, max_disp,
                                    num_jacobi_iters)
-    outs = [torch.empty_like(t) for t in (u, v, p, density)]
-    traj = torch.empty(*density.shape[:-2], num_steps, h, w,
-                       dtype=torch.float32, device=density.device)
-    scratch = torch.empty(
-        episodes * (2 * (h + 1) * w + 2 * h * (w + 1) + 5 * h * w),
-        dtype=torch.float32, device=density.device,
-    )
-    dt32, buoy, coef_uv, coef_d = _coefs(dt, viscosity)
-    stream = torch.cuda.current_stream(density.device).cuda_stream
-    rc = _lib().fused_multi_step_launch(
-        u.data_ptr(), v.data_ptr(), p.data_ptr(), density.data_ptr(),
-        *(t.data_ptr() for t in outs), traj.data_ptr(), scratch.data_ptr(),
-        episodes, h, w, num_jacobi_iters, max_disp, num_steps,
-        float(dt32), float(buoy), float(coef_uv), float(coef_d), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"fused_multi_step kernel launch failed: cudaError {rc}")
+    plan = launch_plan(episodes, h, w, max_disp, multi=True, device=density.device)
+    out = _launch(u, v, p, density, num_steps, dt, viscosity, num_jacobi_iters, max_disp,
+                  plan)
     MULTI_LAUNCHES += 1
-    return tuple(outs), traj
+    return out
 
 
 def fused_step(
@@ -218,8 +446,9 @@ def fused_step(
     dt: float, viscosity: float,
     num_jacobi_iters: int = 20, max_disp: int = 1,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """One whole solver step. CUDA tensors launch the kernel (one block per
-    episode of the leading batch); CPU tensors take `fused_step_reference`."""
+    """One whole solver step. CUDA tensors launch the kernel (one cluster
+    per episode of the leading batch at a time, cut by `launch_plan`); CPU
+    tensors take `fused_step_reference`."""
     global LAUNCHES
     _check(u, v, p, density)
     if density.device.type == "cpu":
@@ -227,20 +456,8 @@ def fused_step(
                                     num_jacobi_iters, max_disp)
     h, w, episodes = _check_launch("fused_step", density, max_disp,
                                    num_jacobi_iters)
-    outs = [torch.empty_like(t) for t in (u, v, p, density)]
-    scratch = torch.empty(
-        episodes * ((h + 1) * w + h * (w + 1) + 3 * h * w),
-        dtype=torch.float32, device=density.device,
-    )
-    dt32, buoy, coef_uv, coef_d = _coefs(dt, viscosity)
-    stream = torch.cuda.current_stream(density.device).cuda_stream
-    rc = _lib().fused_step_launch(
-        u.data_ptr(), v.data_ptr(), p.data_ptr(), density.data_ptr(),
-        *(t.data_ptr() for t in outs), scratch.data_ptr(),
-        episodes, h, w, num_jacobi_iters, max_disp,
-        float(dt32), float(buoy), float(coef_uv), float(coef_d), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
+    plan = launch_plan(episodes, h, w, max_disp, device=density.device)
+    outs, _ = _launch(u, v, p, density, None, dt, viscosity, num_jacobi_iters, max_disp,
+                      plan)
     LAUNCHES += 1
-    return tuple(outs)
+    return outs

@@ -33,7 +33,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _state(dev, episodes, seed=0, h=128, w=128):
+# far taps: at dt FAST_DT a divergence-free shear of amplitude SHEAR (u a
+# function of the column, v of the row) moves most cells 1 to 3.6 cells a
+# step, so every tap of radius 2 and 3 carries weight, across CTA stripes
+FAST_DT = 1.0
+SHEAR = 3.0
+
+
+def _state(dev, episodes, seed=0, h=128, w=128, shear=0.0):
     g = torch.Generator().manual_seed(seed)
     s = solver.init_state((h, w), device=dev, batch=(episodes,))
     d = s.density
@@ -42,28 +49,96 @@ def _state(dev, episodes, seed=0, h=128, w=128):
         d = solver.add_smoke_source(d, x, y, radius=8.0, intensity=1.0)
     u = 0.5 * torch.randn(episodes, h + 1, w, generator=g)
     v = 0.5 * torch.randn(episodes, h, w + 1, generator=g)
+    if shear:
+        phase = torch.rand(2, episodes, 1, 1, generator=g) * 2 * math.pi
+        cols = torch.arange(w, dtype=torch.float32)
+        rows = torch.arange(h, dtype=torch.float32)[:, None]
+        u = u + shear * torch.sin(2 * math.pi * cols / 37 + phase[0])
+        v = v + shear * torch.cos(2 * math.pi * rows / 29 + phase[1])
     return [u.to(dev), v.to(dev), torch.zeros_like(d), d.contiguous()]
 
 
-@pytest.mark.parametrize("episodes", [1, 4])
-@pytest.mark.parametrize("max_disp", [1, 2])
-def test_fused_step_kernel_matches_plain(cuda, episodes, max_disp):
+def _far_taps_matter(fields, dt, iters, max_disp):
+    """The plain step at max_disp - 1 differs from the one at max_disp by
+    more than half a cell's density: the outermost taps carry weight."""
+    near = step_ops.fused_step_reference(*fields, dt, 0.001, iters, max_disp - 1)
+    far = step_ops.fused_step_reference(*fields, dt, 0.001, iters, max_disp)
+    return max(float((a - b).abs().max()) for a, b in zip(near, far)) > 0.5
+
+
+@pytest.mark.parametrize("episodes", [1, 4, 64])
+@pytest.mark.parametrize("max_disp,shear", [(1, 0.0), (2, 0.0), (3, 0.0), (2, SHEAR), (3, SHEAR)],
+                         ids=["1", "2", "3", "2-far", "3-far"])
+def test_fused_step_kernel_matches_plain(cuda, episodes, max_disp, shear):
     """atol 1e-5 on the fields (the kernel is built without FMA contraction);
-    p also rtol 1e-5, since the divergence carries a 1/dt factor."""
-    fields = _state(cuda, episodes)
+    p also rtol 1e-5, since the divergence carries a 1/dt factor. 128^2 in
+    the shared mode; max_disp 3 takes the runtime-radius instantiation. The
+    "far" cases move cells far (dt FAST_DT, the shear), so a tap crosses
+    into the neighbouring CTA's stripe and its halo rows (a cluster of
+    several CTAs at one episode)."""
+    fields = _state(cuda, episodes, shear=shear)
+    dt = FAST_DT if shear else 0.01
+    plan = step_ops.launch_plan(episodes, 128, 128, max_disp, device=cuda)
+    assert plan.mode == "shared" and (episodes > 1 or plan.cluster > 1)
+    if shear:
+        assert _far_taps_matter(fields, dt, 20, max_disp)
     before = step_ops.LAUNCHES
-    out = step_ops.fused_step(*fields, 0.01, 0.001, 20, max_disp)
+    out = step_ops.fused_step(*fields, dt, 0.001, 20, max_disp)
     assert step_ops.LAUNCHES == before + 1
-    ref = step_ops.fused_step_reference(*fields, 0.01, 0.001, 20, max_disp)
+    ref = step_ops.fused_step_reference(*fields, dt, 0.001, 20, max_disp)
     for name, a, b in zip(("u", "v", "p", "density"), out, ref):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
 
 
-def test_fused_step_kernel_odd_sweeps_and_shape(cuda):
-    fields = _state(cuda, 2, h=48, w=80)
-    out = step_ops.fused_step(*fields, 0.01, 0.001, 7, 1)
-    ref = step_ops.fused_step_reference(*fields, 0.01, 0.001, 7, 1)
+@pytest.mark.parametrize("h,w,iters,max_disp,shear",
+                         [(48, 80, 7, 1, 0.0), (3, 70, 20, 1, 0.0), (2, 2, 3, 1, 0.0),
+                          (48, 80, 7, 3, SHEAR), (3, 70, 0, 2, SHEAR)],
+                         ids=["48x80", "3x70", "2x2", "48x80-r3", "3x70-0sweeps"])
+def test_fused_step_kernel_odd_sweeps_and_shape(cuda, h, w, iters, max_disp, shear):
+    """Odd and tiny grids, odd and zero sweep counts, two episodes (same
+    bounds as above); the radius-3 and radius-2 cases move cells far
+    (dt FAST_DT, the shear)."""
+    fields = _state(cuda, 2, h=h, w=w, shear=shear)
+    dt = FAST_DT if shear else 0.01
+    out = step_ops.fused_step(*fields, dt, 0.001, iters, max_disp)
+    ref = step_ops.fused_step_reference(*fields, dt, 0.001, iters, max_disp)
     for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("size,mode,cluster", [(256, "shared", 16), (1024, "global", 16)])
+def test_fused_step_kernel_large_grids(cuda, size, mode, cluster):
+    """One episode at 256^2 (state in a cluster of 16 CTAs' shared memory)
+    and at 1024^2 (the global mode, still a cluster of 16): the same bounds
+    as at 128^2."""
+    plan = step_ops.launch_plan(1, size, size, 1, device=cuda)
+    assert (plan.mode, plan.cluster) == (mode, cluster)
+    fields = _state(cuda, 1, h=size, w=size)
+    out = step_ops.fused_step(*fields, 0.01, 0.001, 20, 1)
+    ref = step_ops.fused_step_reference(*fields, 0.01, 0.001, 20, 1)
+    for name, a, b in zip(("u", "v", "p", "density"), out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def test_solver_runs_the_kernels_at_any_tap_radius(cuda):
+    """`step` and `multi_step` with use_pallas and max_disp 3 go through the
+    fused kernels (one launch each), as the JAX package's do, and agree
+    with the plain versions (bounds as above), at 64^2 with cells moving
+    far (dt FAST_DT, the shear)."""
+    fields = [f[0] for f in _state(cuda, 1, h=64, w=64, shear=SHEAR)]
+    assert _far_taps_matter(fields, FAST_DT, 20, 3)
+    state = solver.SimState(*fields)
+    launches = (step_ops.LAUNCHES, step_ops.MULTI_LAUNCHES)
+    out = solver.step(state, dt=FAST_DT, viscosity=0.001, use_pallas=True, max_disp=3)
+    final, traj = solver.multi_step(state, 5, dt=FAST_DT, viscosity=0.001, use_pallas=True,
+                                    max_disp=3)
+    assert (step_ops.LAUNCHES, step_ops.MULTI_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    ref = step_ops.fused_step_reference(*fields, FAST_DT, 0.001, 20, 3)
+    for a, b in zip((out.u, out.v, out.p, out.density), ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    rfinal, rtraj = step_ops.fused_multi_step_reference(*fields, 5, FAST_DT, 0.001, 20, 3)
+    torch.testing.assert_close(traj, rtraj, atol=1e-5, rtol=0)
+    for a, b in zip((final.u, final.v, final.p, final.density), rfinal):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
@@ -125,24 +200,30 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("episodes", [1, 4])
-def test_fused_multi_step_kernel_matches_plain(cuda, episodes):
+@pytest.mark.parametrize("max_disp,shear", [(1, 0.0), (3, 0.0), (2, SHEAR), (3, SHEAR)],
+                         ids=["1", "3", "2-far", "3-far"])
+def test_fused_multi_step_kernel_matches_plain(cuda, episodes, max_disp, shear):
     """The multi-step kernel against its plain version (20 steps at 128^2):
     trajectory [N, T, H, W] and final state atol 1e-5, p also rtol 1e-5; and
     bit-equal to 20 launches of the single-step kernel, which runs the same
-    stages in the same order. The inputs are not modified."""
-    fields = _state(cuda, episodes)
+    stages in the same order. The inputs are not modified. The "far" cases
+    move cells far (dt FAST_DT, the shear)."""
+    fields = _state(cuda, episodes, shear=shear)
+    dt = FAST_DT if shear else 0.01
+    if shear:
+        assert _far_taps_matter(fields, dt, 20, max_disp)
     before = [f.clone() for f in fields]
     launches = step_ops.MULTI_LAUNCHES
-    final, traj = step_ops.fused_multi_step(*fields, 20, 0.01, 0.001, 20, 1)
+    final, traj = step_ops.fused_multi_step(*fields, 20, dt, 0.001, 20, max_disp)
     assert step_ops.MULTI_LAUNCHES == launches + 1
     assert traj.shape == (episodes, 20, 128, 128)
-    rfinal, rtraj = step_ops.fused_multi_step_reference(*fields, 20, 0.01, 0.001, 20, 1)
+    rfinal, rtraj = step_ops.fused_multi_step_reference(*fields, 20, dt, 0.001, 20, max_disp)
     torch.testing.assert_close(traj, rtraj, atol=1e-5, rtol=0)
     for a, b in zip(final, rfinal):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     s = fields
     for t in range(20):
-        s = step_ops.fused_step(*s, 0.01, 0.001, 20, 1)
+        s = step_ops.fused_step(*s, dt, 0.001, 20, max_disp)
         assert torch.equal(traj[:, t], s[3]), t
     for a, b in zip(final, s):
         assert torch.equal(a, b)
