@@ -11,8 +11,9 @@ From the root of a checkout, with one CUDA card:
    in the SASS of libflash_tokens.so and libflash_bwd.so (cuobjdump) and
    fails if either is 0 in either, or if ptxas reported serialised wgmma
    (C75xx) for a kernel of flash_bwd.cu; prints the registers and spills
-   of libfused_step.so's kernels (ptxas) and counts its cluster-barrier
-   instructions (UCGABAR_ARV, UCGABAR_WAIT), failing if there are none;
+   of libfused_step.so's and libcg3d.so's kernels (ptxas) and counts the
+   former's cluster-barrier instructions (UCGABAR_ARV, UCGABAR_WAIT),
+   failing if there are none;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card (fused solver step and multi-step at 128^2, one episode and a batch
    of four, the step also at 1024^2 (the global mode) and, at dt 1 with a
@@ -74,10 +75,14 @@ From the root of a checkout, with one CUDA card:
    8 episodes, the chunk and the forward at B=19 and 8 (with --trace, the
    step's device time by kernel);
 9. volumetric phase: `config/config_128cubed.yaml` at full width. The CG
-   pressure kernel against its plain version (128^3 x 30 iterations from a
-   zero and a warm p0, [2,64,64,64] with each episode equal to its solo
-   solve, 37x53x29 with 30, 0 and 1 iterations, zero divergence; every
-   solve run twice, bit-equal); two 128^3 episodes (T = 12) generated
+   pressure kernel (one launch a solve) against its plain version (128^3
+   x 30 iterations from a zero and a warm p0, 2 x 128^3 (two waves of
+   episodes), 160^3 (the global mode), [2,64,64,64], each episode of a
+   batch equal to its solo solve, 37x53x29 with 30, 0 and 1 iterations,
+   zero divergence; every solve run twice, bit-equal; each call's launch
+   plan printed; the global mode forced on every warm on-chip solve of 30
+   iterations, batches included, bit-equal to its on-chip plan); two 128^3
+   episodes (T = 12) generated
    through `data.synthetic3d.SyntheticSmokeDataset3D` (one CG solve per
    step, no other kernel) and held frame by frame against the plain CG;
    `checkpoints/smokephysnet3d_128cubed.npz` served on frame 6 -> 7 through
@@ -88,8 +93,9 @@ From the root of a checkout, with one CUDA card:
    `tpu.use_flash` (4 lean launches) and its input gradient (4 + 4
    launches of the training pair) against einsum; timings of the CG, the
    3D step, one episode, the forward and the head_dim-32 kernels (the
-   backward's and the split pair's in turns with SDPA's backward), and the
-   3D step's device time by kernel (torch.profiler);
+   backward's and the split pair's in turns with SDPA's backward; the CG
+   kernel's device time too), and the 3D step's device time by kernel
+   (torch.profiler);
 10. prints the kernels' JSON line, the SASS counts, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
@@ -1164,31 +1170,42 @@ def volumetric_phase(dev, name, trace):
 
     # ------------------------------------------------ CG kernel vs plain version
     cg_err, cg_rel = 0.0, 0.0
+    card = cg_ops.card_occupancy(torch.cuda.current_device())
     for shape, k, warm in (((1, *grid), iters, False), ((1, *grid), iters, True),
+                           ((2, *grid), iters, True), ((1, 160, 160, 160), iters, True),
                            ((2, 64, 64, 64), iters, True), ((1, 37, 53, 29), iters, True),
                            ((1, 37, 53, 29), 0, True), ((1, 37, 53, 29), 1, True)):
         div = torch.randn(*shape, generator=gen).to(dev)
         p0 = ((0.1 * torch.randn(*shape, generator=gen)).to(dev) if warm
               else torch.zeros(*shape, device=dev))
         before = (p0.clone(), div.clone())
+        plan = cg_ops.launch_plan(*shape, device=dev)
         out = cg_ops.cg_pressure(p0, div, k)
         again = cg_ops.cg_pressure(p0, div, k)
         ref = cg_ops.cg_pressure_reference(p0, div, k)
         solo = [cg_ops.cg_pressure(p0[e:e + 1].contiguous(), div[e:e + 1].contiguous(), k)
                 for e in range(shape[0])]
+        # the global mode forced on what runs on chip, batches included: the
+        # same bits
+        forced = (cg_ops._launch(p0, div, k, cg_ops.plan_launch(*shape, *card, mode="global"))
+                  if plan.mode == "chip" and warm and k == iters else out)
         torch.cuda.synchronize()
         err = maxerr(out, ref)
         rel = rel_norm(out, ref) if err > 0.0 else 0.0
         solo_ok = all(torch.equal(out[e:e + 1], s_) for e, s_ in enumerate(solo))
         kept = torch.equal(p0, before[0]) and torch.equal(div, before[1])
-        say(f"kernel cg_pressure {list(shape)} x{k} from {'a warm' if warm else 'zero'} p0: "
-            f"||d||/||ref|| {rel:.3e} (bound {CG_REL_NORM:g}), max|d| {err:.3e}, two runs "
-            f"bit-equal {torch.equal(out, again)}, each episode = its solo solve {solo_ok}, "
-            f"inputs unchanged {kept}")
-        if not (rel <= CG_REL_NORM and torch.equal(out, again) and solo_ok and kept):
-            fail("cg_pressure disagrees with its plain version, itself or its solo solves")
+        say(f"kernel cg_pressure {list(shape)} x{k} from {'a warm' if warm else 'zero'} p0 "
+            f"({plan.describe()}; {cg_ops.launches_per_solve(k)} launch): ||d||/||ref|| "
+            f"{rel:.3e} (bound {CG_REL_NORM:g}), max|d| {err:.3e}, two runs bit-equal "
+            f"{torch.equal(out, again)}, each episode = its solo solve {solo_ok}, inputs "
+            f"unchanged {kept}" + (f", forced global mode bit-equal {torch.equal(forced, out)}"
+                                   if forced is not out else ""))
+        if not (rel <= CG_REL_NORM and torch.equal(out, again) and solo_ok and kept
+                and torch.equal(forced, out)):
+            fail("cg_pressure disagrees with its plain version, itself, its solo solves or "
+                 "its global mode")
         cg_err, cg_rel = max(cg_err, err), max(cg_rel, rel)
-        del div, p0, before, out, again, ref, solo
+        del div, p0, before, out, again, ref, solo, forced
     zero = torch.zeros(2, 32, 32, 32, device=dev)
     zout = cg_ops.cg_pressure(zero, zero, iters)
     say(f"kernel cg_pressure zero divergence from p0 = 0: p stays p0 exactly "
@@ -1327,15 +1344,18 @@ def volumetric_phase(dev, name, trace):
     div = torch.randn(1, *grid, generator=gen).to(dev)
     p0 = torch.zeros(1, *grid, device=dev)
     ms = timed(lambda: cg_ops.cg_pressure(p0, div, iters))
+    cg_device_ms = device_ms(lambda: cg_ops.cg_pressure(p0, div, iters))
     plain_ms = timed(lambda: cg_ops.cg_pressure_reference(p0, div, iters), runs=5)
     cells = div.numel()
     # per cell and iteration: matvec 8 (6 adds, a multiply, the negation),
     # d.Ad 2, p update 2, r update 2, r.r 2, d = r + beta d 2
     cg_bound = lower_bound(3 * 4 * cells, 18 * cells * iters + 12 * cells, F32_FLOPS)
     timings["cg_pressure"] = (ms, plain_ms, *cg_bound)
+    cg_plan = cg_ops.launch_plan(1, *grid, device=dev).describe()
     say(f"time cg_pressure [1,{grid[0]},{grid[1]},{grid[2]}] x{iters} on {name}: kernel "
-        f"{ms:.4f} ms ({cg_ops.launches_per_solve(iters)} launches), plain {plain_ms:.4f} "
-        f"ms, bound {cg_bound[0]:.6f} ms ({cg_bound[1]})")
+        f"{ms:.4f} ms, device {cg_device_ms:.4f} ms ({cg_ops.launches_per_solve(iters)} "
+        f"launch, {cg_plan}), plain {plain_ms:.4f} ms, bound {cg_bound[0]:.6f} ms "
+        f"({cg_bound[1]})")
     state = solver3d.init_state3d(grid, device=dev, batch=(1,))
     state = state.replace(density=seqs[:1, tf].contiguous())
     step_ms = timed(lambda: solver3d.step3d(state, dt, visc, use_pallas=True), runs=10)
@@ -1406,7 +1426,8 @@ def volumetric_phase(dev, name, trace):
     return {"gen_counts": gen_counts, "flash_counts": {**flash_serve_counts, **{
         k_: grad_counts[k_] for k_ in ("flash_attention_tokens_fwd_lse",
                                        "flash_attention_tokens_bwd")}},
-            "cg_err": cg_err, "flash_errs": flash_errs, "timings": timings, "hd": hd,
+            "cg_err": cg_err, "cg_plan": cg_plan, "flash_errs": flash_errs, "timings": timings,
+            "hd": hd,
             "width": width, "heads": heads}
 
 
@@ -1483,16 +1504,17 @@ def main():
                       f"UCGABAR_WAIT {bars[1]} (cluster barriers)")
     if bars is not None and min(bars) == 0:
         fail(f"the fused solver kernels have no cluster barrier: {sass_lines[-1]}")
-    step_log = _build.build_logs.get(step_ops.SOURCE)
-    if step_log is None:
-        say(f"  {step_ops.SOURCE}: built before this run, no ptxas log to read")
-    else:
-        regs = [line.split("Used")[1].split(",")[0].strip() for line in step_log.splitlines()
+    for src in (step_ops.SOURCE, cg_ops.SOURCE):
+        log = _build.build_logs.get(src)
+        if log is None:
+            say(f"  {src}: built before this run, no ptxas log to read")
+            continue
+        regs = [line.split("Used")[1].split(",")[0].strip() for line in log.splitlines()
                 if "registers" in line and "Used" in line]
-        spills = [line.strip() for line in step_log.splitlines()
+        spills = [line.strip() for line in log.splitlines()
                   if "spill" in line and not line.strip().startswith("0 bytes spill stores, "
                                                                       "0 bytes spill loads")]
-        say(f"ptxas {step_ops.SOURCE}: {len(regs)} kernels, registers per thread "
+        say(f"ptxas {src}: {len(regs)} kernels, registers per thread "
             f"{sorted(set(regs))}; spills: {spills or 'none'}")
     sass_line = "; ".join(sass_lines)
     for src, log in _build.build_logs.items():
@@ -2065,7 +2087,8 @@ def main():
         "max_abs_err": vol["cg_err"],
         "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
         "library_ms": None,
-        "shape": "p0, div [1,128,128,128] f32, 30 iterations (61 launches per solve)",
+        "shape": (f"p0, div [1,128,128,128] f32, 30 iterations ("
+                  f"{cg_ops.launches_per_solve(30)} launch per solve, {vol['cg_plan']})"),
     })
     hd, vw, vh = vol["hd"], vol["width"], vol["heads"]
     for kname, source, line in (

@@ -395,13 +395,18 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("shape,iters", [((1, 32, 32, 32), 30), ((3, 16, 16, 16), 30),
                                          ((1, 37, 53, 29), 30), ((2, 8, 9, 10), 0),
-                                         ((2, 8, 9, 10), 1), ((1, 1, 1, 1), 5)],
-                         ids=["32cubed", "batch3", "odd", "iters0", "iters1", "one_cell"])
+                                         ((2, 8, 9, 10), 1), ((1, 1, 1, 1), 5),
+                                         ((1, 40, 40, 70), 30), ((2, 64, 64, 64), 30),
+                                         ((1, 128, 128, 128), 30), ((2, 128, 128, 128), 30),
+                                         ((1, 160, 160, 160), 30)],
+                         ids=["32cubed", "batch3", "odd", "iters0", "iters1", "one_cell",
+                              "cut_zyx", "2x64cubed", "128cubed", "2x128cubed", "160cubed"])
 def test_cg_kernel_matches_plain(cuda, shape, iters):
     """The CG kernel against its plain version from a warm p0:
     ||d|| / ||ref|| <= 1e-5 (float32 sums in another order); two runs
-    bit-equal; each episode of a batch bit-equal to its solve alone; one
-    count per solve; the inputs unchanged."""
+    bit-equal; each episode of a batch bit-equal to its solve alone (at
+    2 x 128^3 the batch takes two waves); one count per solve; the inputs
+    unchanged. 160^3 takes the global mode."""
     g = torch.Generator().manual_seed(sum(shape) + iters)
     div = torch.randn(*shape, generator=g).to(cuda)
     p0 = (0.1 * torch.randn(*shape, generator=g)).to(cuda)
@@ -420,15 +425,88 @@ def test_cg_kernel_matches_plain(cuda, shape, iters):
     assert torch.equal(p0, before[0]) and torch.equal(div, before[1])
 
 
+def _card_plan(shape, mode=None):
+    return cg_ops.plan_launch(*shape, *cg_ops.card_occupancy(torch.cuda.current_device()),
+                              mode=mode)
+
+
+@pytest.mark.parametrize("shape,mode,waves,cuts", [
+    ((1, 128, 128, 128), "chip", 1, (16, 8, 1)), ((2, 128, 128, 128), "chip", 2, (16, 8, 1)),
+    ((1, 40, 40, 70), "chip", 1, None), ((1, 160, 160, 160), "global", 1, None)],
+    ids=["128cubed", "2x128cubed", "cut_zyx", "160cubed"])
+def test_cg_kernel_plan_on_the_card(cuda, shape, mode, waves, cuts):
+    """The plan a call takes with the card's occupancy: the 128^3 episode
+    on chip, one brick of 8 planes x 16 rows x 128 columns per CTA (128
+    CTAs of 1024 threads, the volume cut 16 x 8 x 1); two of them do not
+    fit at once and take two waves; the 40 x 40 x 70 volume is cut along
+    z, y and x; a 160^3 episode does not fit the card's shared memory and
+    takes the global mode."""
+    plan = cg_ops.launch_plan(*shape, device=cuda)
+    assert plan == _card_plan(shape)
+    assert (plan.mode, plan.waves) == (mode, waves)
+    if mode == "chip":
+        got = cg_ops.bricks(cg_ops.Granules(*shape[1:]), plan.brick)
+        assert got == cuts if cuts else all(n > 1 for n in got)
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 40, 70), (1, 128, 128, 128)],
+                         ids=["cut_zyx", "128cubed"])
+def test_cg_kernel_every_plan_bit_equal(cuda, shape):
+    """Every on-chip plan the card holds (each brick cut; at 40 x 40 x 70
+    some cut z, y and x, so halos cross CTAs in every direction) and the
+    global mode forced through plan_launch's argument give the bits of
+    the default plan, 30 iterations from a warm p0; one launch each."""
+    g = torch.Generator().manual_seed(11)
+    div = torch.randn(*shape, generator=g).to(cuda)
+    p0 = (0.1 * torch.randn(*shape, generator=g)).to(cuda)
+    want = cg_ops.cg_pressure(p0, div, 30)
+    gr = cg_ops.Granules(*shape[1:])
+    card = cg_ops.card_occupancy(torch.cuda.current_device())
+    plans = list(cg_ops.plan_candidates(*shape, *card))
+    assert any(all(n > 1 for n in cg_ops.bricks(gr, pl.brick)) for pl in plans)
+    plans.append(_card_plan(shape, mode="global"))
+    assert plans[-1].mode == "global"
+    for plan in plans:
+        got = cg_ops._launch(p0, div, 30, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan.describe()
+
+
+@pytest.mark.parametrize("shape", [(3, 32, 32, 32), (3, 37, 53, 29), (2, 64, 64, 64)],
+                         ids=["batch3", "odd_batch3", "2x64cubed"])
+def test_cg_kernel_forced_global_batches_bit_equal(cuda, shape):
+    """A batch in the global mode, forced through plan_launch's argument,
+    gives the bits of its on-chip plan: every CTA takes the episodes one
+    at a time, each episode's barrier on its own flags; 30 iterations from
+    a warm p0, twice."""
+    g = torch.Generator().manual_seed(13)
+    div = torch.randn(*shape, generator=g).to(cuda)
+    p0 = (0.1 * torch.randn(*shape, generator=g)).to(cuda)
+    want = cg_ops.cg_pressure(p0, div, 30)
+    assert cg_ops.launch_plan(*shape, device=cuda).mode == "chip"
+    plan = _card_plan(shape, mode="global")
+    assert plan.mode == "global" and plan.ctas > 1
+    for _ in range(2):
+        got = cg_ops._launch(p0, div, 30, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan.describe()
+
+
 def test_cg_kernel_guards_and_refusals(cuda):
     """Zero divergence from p0 = 0 stays exactly 0 (both guards), and the
-    wrapper refuses what the kernel does not take."""
+    wrapper refuses what the kernel does not take, capture into a CUDA
+    graph included (its barrier tags are launch arguments)."""
     z = torch.zeros(2, 8, 8, 8, device=cuda)
     assert torch.equal(cg_ops.cg_pressure(z, z, 30), z)
     with pytest.raises(TypeError, match="float32"):
         cg_ops.cg_pressure(z.double(), z.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
         cg_ops.cg_pressure(z.transpose(-1, -2), z, 3)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            y = z + 1.0  # the graph is not empty
+            cg_ops.cg_pressure(y, z, 3)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -76,7 +76,7 @@ def test_cg_batched_alpha_beta_per_episode_and_guards():
         cg3d.cg_pressure(p0, div[:, :-1].contiguous(), 3)
     with pytest.raises(ValueError, match="num_iters"):
         cg3d.cg_pressure(p0, div, -1)
-    assert cg3d.launches_per_solve(30) == 61
+    assert cg3d.launches_per_solve(30) == 1  # one cooperative launch a solve
 
 
 def test_trilinear_shift_sample_matches_gather_and_jax():
