@@ -62,17 +62,24 @@ From the root of a checkout, with one CUDA card:
    torch.profiler and prints where their device time goes;
 8. vorticity phase: `config/config_256_vorticity.yaml`, where vorticity
    confinement sends every solver step per op through the Jacobi and
-   diffusion kernels. Both kernels against their plain versions (Jacobi at
-   256^2 with 1 and 8 episodes, at 37x53 with 0 and 1 sweeps and at
-   2048^2; diffusion on the three staggered 256^2 fields with 1 and 8
-   episodes; max|d| 0); the slice as `inference.run` drives it (test
+   diffusion kernels. Both kernels against their plain versions, max|d| 0:
+   Jacobi at 256^2 with 1 and 8 episodes, at 37x53 with 0 and 1 sweeps, at
+   512^2, 1024^2 and 2048^2 and at 101x67 with 45 sweeps, each call's
+   launch plan printed (the cluster mode up to 512^2, tiled beyond), the
+   tiled mode also forced at 256^2 and at 101x67 x 45 (two passes), and
+   the smallest cluster plan forced at 8 x 256^2; diffusion on each of the three staggered
+   256^2 fields with 1 and 8 episodes, and `diffuse_fields` on all three
+   in one launch at 1 and 8; the slice as `inference.run` drives it (test
    sequence, one batched forward) on `checkpoints/smokephysnet_256_vort_best.npz`
-   at full width (20 Jacobi and 60 diffusion launches, none of the other
-   kernels), its sequence against the plain per-op solver (bit-equal) and
-   its bf16 forward against the float32 model; 8 episodes of
-   `config_256_finetune.yaml`'s generation (20 + 60 launches, all 8
-   bit-equal to the plain loop); timings of both kernels, the step at 1 and
-   8 episodes, the chunk and the forward at B=19 and 8 (with --trace, the
+   at full width (20 Jacobi and 20 diffusion launches, one each a step,
+   none of the other kernels), its sequence against the plain per-op
+   solver (bit-equal) and its bf16 forward against the float32 model; 8
+   episodes of `config_256_finetune.yaml`'s generation (20 + 20 launches,
+   all 8 bit-equal to the plain loop); timings of both kernels (CUDA
+   events through the wrapper and the kernel's device time alone by
+   torch.profiler: Jacobi at [1,256^2], [8,256^2], [1,512^2], [1,2048^2],
+   the three-field diffusion at 1 and 8 episodes), the step at 1 and 8
+   episodes, the chunk and the forward at B=19 and 8 (with --trace, the
    step's device time by kernel);
 9. volumetric phase: `config/config_128cubed.yaml` at full width. The CG
    pressure kernel (one launch a solve) against its plain version (128^3
@@ -935,22 +942,43 @@ def vorticity_phase(dev, name, trace):
         p = (0.1 * torch.randn(episodes, hh, ww, generator=gen)).to(dev)
         return p, torch.randn(episodes, hh, ww, generator=gen).to(dev)
 
+    def smallest_cluster(episodes, hh, ww):
+        """The plan of the fewest CTAs a cluster that the card can run."""
+        card = jacobi_ops.card_active_clusters(torch.cuda.current_device())
+        return min(jacobi_ops.plan_candidates(episodes, hh, ww, card),
+                   key=lambda pl: (pl.cluster, -pl.threads))
+
     jacobi_err = 0.0
-    for episodes, hh, ww, k in ((1, h, w, iters), (8, h, w, iters), (2, 37, 53, 0),
-                                (2, 37, 53, 1), (1, 2048, 2048, iters)):
+    # (episodes, h, w, sweeps, the mode its plan must take, forced plans)
+    for episodes, hh, ww, k, mode, forced in (
+            (1, h, w, iters, "cluster", ("tiled",)), (8, h, w, iters, "cluster", ("smallest",)),
+            (2, 37, 53, 0, "cluster", ()), (2, 37, 53, 1, "cluster", ()),
+            (1, 512, 512, iters, "cluster", ()), (1, 1024, 1024, iters, "tiled", ()),
+            (1, 2048, 2048, iters, "tiled", ()), (2, 101, 67, 45, "cluster", ("tiled",))):
         p, div = pressure_inputs(episodes, hh, ww)
         before = (p.clone(), div.clone())
+        plan = jacobi_ops.launch_plan(episodes, hh, ww, device=dev)
+        n0 = jacobi_ops.LAUNCHES
         out = jacobi_ops.jacobi_pressure(p, div, k)
+        launched = jacobi_ops.LAUNCHES - n0
         ref = jacobi_ops.jacobi_pressure_reference(p, div, k)
+        runs = [("plan", plan, out)]
+        for which in forced:
+            alt = jacobi_ops.TILED if which == "tiled" else smallest_cluster(episodes, hh, ww)
+            runs.append((f"forced {which}", alt, jacobi_ops._launch(p, div, k, alt)))
         torch.cuda.synchronize()
-        err = maxerr(out, ref)
         kept = torch.equal(p, before[0]) and torch.equal(div, before[1])
-        say(f"kernel jacobi_pressure [{episodes},{hh},{ww}] x{k} sweeps: max|d| "
-            f"{err:.3e} (bound 0), inputs unchanged {kept}")
-        if not (err == 0.0 and kept):
-            fail("jacobi_pressure disagrees with its plain version")
-        jacobi_err = max(jacobi_err, err)
-        del p, div, before, out, ref
+        for label, pl, got in runs:
+            err = maxerr(got, ref)
+            say(f"kernel jacobi_pressure [{episodes},{hh},{ww}] x{k} sweeps, {label}: "
+                f"{pl.describe()}; max|d| {err:.3e} (bound 0), inputs unchanged {kept}")
+            if not (err == 0.0 and kept):
+                fail("jacobi_pressure disagrees with its plain version")
+            jacobi_err = max(jacobi_err, err)
+        if plan.mode != mode or launched != plan.launches(k):
+            fail(f"jacobi_pressure [{episodes},{hh},{ww}] x{k}: expected the {mode} mode "
+                 f"and {plan.launches(k)} launches, got {plan.mode} and {launched}")
+        del p, div, before, out, ref, runs
     coef_uv = np.float32(dt) * np.float32(visc)
     coef_d = np.float32(dt) * (np.float32(visc) * np.float32(0.1))
     shapes = {"u": ((h + 1, w), coef_uv), "v": ((h, w + 1), coef_uv),
@@ -967,6 +995,21 @@ def vorticity_phase(dev, name, trace):
             if not (err == 0.0 and kept):
                 fail("diffuse disagrees with its plain version")
             diffuse_err = max(diffuse_err, err)
+        fields = [torch.rand(episodes, *shape, generator=gen).to(dev)
+                  for shape, _ in shapes.values()]
+        before = [f.clone() for f in fields]
+        n0 = stencil_ops.LAUNCHES
+        outs = stencil_ops.diffuse_fields(*fields, coef_uv, coef_d)
+        launched = stencil_ops.LAUNCHES - n0
+        errs = [maxerr(o, stencil_ops.diffuse_reference(f, coef))
+                for o, f, (_, coef) in zip(outs, fields, shapes.values())]
+        kept = all(torch.equal(f, b) for f, b in zip(fields, before))
+        say(f"kernel diffuse_fields u, v, density [{episodes},{h},{w}] in {launched} "
+            f"launch: max|d| {max(errs):.3e} (bound 0), inputs unchanged {kept}")
+        if not (max(errs) == 0.0 and kept and launched == 1):
+            fail("diffuse_fields disagrees with its plain version or took more than one "
+                 "launch")
+        diffuse_err = max(diffuse_err, *errs)
 
     # ------------------------------------------------ the slice
     if not os.path.exists(VORT_CHECKPOINT):
@@ -989,7 +1032,7 @@ def vorticity_phase(dev, name, trace):
     say(f"vorticity slice: {grid[0]}x{grid[1]}, vorticity_eps {eps}, 20 frames and one "
         f"batched forward of 19 in {slice_s * 1e3:.1f} ms (host clock, first call); "
         f"launches {launches}")
-    expect_counts("vorticity slice", launches, jacobi_pressure=20, diffuse=60)
+    expect_counts("vorticity slice", launches, jacobi_pressure=20, diffuse=20)
     recon, phys = outputs["reconstructed"], outputs["physics_features"]
     if tuple(recon.shape) != (19, *grid, 1) or tuple(phys.shape) != (19, 3):
         fail(f"unexpected output shapes {tuple(recon.shape)}, {tuple(phys.shape)}")
@@ -1037,7 +1080,7 @@ def vorticity_phase(dev, name, trace):
     gen_counts = read_counts()
     say(f"vorticity generation: {GEN_EPISODES} episodes at {grid[0]}x{grid[1]}, T={T}, "
         f"in {gen_s * 1e3:.1f} ms (host clock, first call); launches {gen_counts}")
-    expect_counts("vorticity generation", gen_counts, jacobi_pressure=T, diffuse=3 * T)
+    expect_counts("vorticity generation", gen_counts, jacobi_pressure=T, diffuse=T)
     if not (torch.isfinite(seqs).all() and torch.isfinite(labels).all()):
         fail("non-finite generated episodes or labels")
     pseqs, plabels = generate(False)
@@ -1049,15 +1092,19 @@ def vorticity_phase(dev, name, trace):
 
     # ------------------------------------------------ timing
     timings = {}
-    for episodes, hh, ww in ((1, h, w), (GEN_EPISODES, h, w), (1, 2048, 2048)):
+    for episodes, hh, ww in ((1, h, w), (GEN_EPISODES, h, w), (1, 512, 512), (1, 2048, 2048)):
         p, div = pressure_inputs(episodes, hh, ww)
-        ms = timed(lambda: jacobi_ops.jacobi_pressure(p, div, iters))
+        call = lambda: jacobi_ops.jacobi_pressure(p, div, iters)  # noqa: E731
+        ms, dev_ms = timed(call), device_ms(call)
         plain_ms = timed(lambda: jacobi_ops.jacobi_pressure_reference(p, div, iters), runs=5)
         cells = episodes * hh * ww
         bound = lower_bound(3 * 4 * cells, 5 * cells * iters, F32_FLOPS)
         timings[("jacobi_pressure", episodes, hh)] = (ms, plain_ms, *bound)
-        say(f"time jacobi_pressure [{episodes},{hh},{ww}] x{iters} sweeps on {name}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+        say(f"time jacobi_pressure [{episodes},{hh},{ww}] x{iters} sweeps on {name}: wrapper "
+            f"{ms:.4f} ms, kernel device {dev_ms:.4f} ms "
+            f"({100 * bound[0] / dev_ms:.1f} % of bound), plain {plain_ms:.4f} ms, bound "
+            f"{bound[0]:.6f} ms ({bound[1]}); "
+            f"{jacobi_ops.launch_plan(episodes, hh, ww, device=dev).describe()}")
     for field, (shape, coef) in shapes.items():
         f = torch.rand(1, *shape, generator=gen).to(dev)
         ms = timed(lambda: stencil_ops.diffuse(f, coef))
@@ -1067,6 +1114,20 @@ def vorticity_phase(dev, name, trace):
         timings[("diffuse", field)] = (ms, plain_ms, *bound)
         say(f"time diffuse {field} {shape} on {name}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+    for episodes in (1, GEN_EPISODES):
+        fields = [torch.rand(episodes, *shape, generator=gen).to(dev)
+                  for shape, _ in shapes.values()]
+        call = lambda: stencil_ops.diffuse_fields(*fields, coef_uv, coef_d)  # noqa: E731
+        ms, dev_ms = timed(call), device_ms(call)
+        plain_ms = timed(lambda: [stencil_ops.diffuse_reference(f, coef) for f, (_, coef)
+                                  in zip(fields, shapes.values())])
+        n = sum(f.numel() for f in fields)
+        bound = lower_bound(2 * 4 * n, 7 * n, F32_FLOPS)
+        timings[("diffuse_fields", episodes)] = (ms, plain_ms, *bound)
+        say(f"time diffuse_fields u, v, density [{episodes},{h},{w}] in one launch on "
+            f"{name}: wrapper {ms:.4f} ms, kernel device {dev_ms:.4f} ms "
+            f"({100 * bound[0] / dev_ms:.1f} % of bound), plain {plain_ms:.4f} ms, bound "
+            f"{bound[0]:.6f} ms ({bound[1]})")
 
     def state_of(episodes):
         s = solver.init_state(grid, device=dev, batch=(episodes,))
@@ -2063,8 +2124,9 @@ def main():
     for kname, source, line, key, err, shape in (
             ("jacobi_pressure", "jacobi.cu", "jacobi.py:122", ("jacobi_pressure", 1, 256),
              vort["jacobi_err"], f"p, div [1,{vgrid}] f32, 20 sweeps"),
-            ("diffuse", "stencil.cu", "stencil.py:35", ("diffuse", "density"),
-             vort["diffuse_err"], f"density [1,{vgrid}] f32")):
+            ("diffuse", "stencil.cu", "stencil.py:35", ("diffuse_fields", 1),
+             vort["diffuse_err"], f"u [1,257,256], v [1,256,257], density [1,{vgrid}] f32 "
+             f"in one launch (diffuse_fields)")):
         t_ = vort["timings"][key]
         kernels.append({
             "name": kname,

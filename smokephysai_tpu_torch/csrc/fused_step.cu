@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -95,36 +97,6 @@ __host__ __device__ inline long slot_floats(int shared, int rows, int halo,
   const long f =
       shared ? (long)(rows + 2 * halo) * (w + 1) : (long)(h + 1) * (w + 1);
   return (f + 3) & ~3L;
-}
-
-__device__ __forceinline__ unsigned cluster_ctarank() {
-  unsigned r;
-  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ unsigned cluster_nctarank() {
-  unsigned r;
-  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ unsigned cluster_id() {
-  unsigned r;
-  asm("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ unsigned cluster_count() {
-  unsigned r;
-  asm("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
-  return r;
-}
-
-// Every thread of every CTA of the cluster: what was written before is
-// seen after, in shared memory (this CTA's and the others') and in global.
-// The release is a MEMBAR.ALL.GPU in the SASS.
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n\t"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -165,17 +137,6 @@ struct Written {
   bool u_rows;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The shared::cluster address of shared address `a` in CTA `rank`.
-__device__ __forceinline__ uint32_t map_u32(uint32_t a, unsigned rank) {
-  uint32_t out;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(a), "r"(rank));
-  return out;
-}
-
 // The end of a stage. Global mode: a cluster barrier. Shared mode: the
 // CTA's threads meet (its own rows are written and every read of the
 // stage is done); each written plane's rows within `halo` of the stripe's
@@ -186,11 +147,6 @@ __device__ __forceinline__ uint32_t map_u32(uint32_t a, unsigned rank) {
 // only after it has them, so no halo is overwritten while it is read.
 // The mbarrier wait acquires at cluster scope; no MEMBAR.ALL.GPU is
 // needed, as a cluster barrier's release would be.
-struct Halos {
-  uint32_t bar;  // this CTA's two mbarriers (shared address of the first)
-  int k;         // stages ended so far
-};
-
 template <bool S>
 __device__ void end_stage(const Ctx& c, Halos& hx, const Written<S>* w,
                           int nw) {
@@ -198,7 +154,7 @@ __device__ void end_stage(const Ctx& c, Halos& hx, const Written<S>* w,
     cluster_barrier();
   } else {
     __syncthreads();
-    const uint32_t bar = hx.bar + 8 * (hx.k & 1);
+    const uint32_t bar = halo_bar(hx);
     const bool has_prev = c.rank > 0, has_next = c.rank + 1 < c.csize;
     uint32_t bytes = 0;
     for (int q = 0; q < nw; ++q) {
@@ -218,10 +174,7 @@ __device__ void end_stage(const Ctx& c, Halos& hx, const Written<S>* w,
         const float* src = pl.row(c, li);
         const uint32_t dst = map_u32(smem_u32(pl.row(c, to)), up ? c.rank - 1 : c.rank + 1);
         const uint32_t rb = up ? bar_prev : bar_next;
-        for (int j = c.tx; j < fw; j += c.bx)
-          asm volatile(
-              "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
-              :: "r"(dst + 4 * j), "r"(__float_as_uint(src[j])), "r"(rb) : "memory");
+        for (int j = c.tx; j < fw; j += c.bx) st_async_f32(dst + 4 * j, src[j], rb);
       }
       // what the neighbours send: halo rows from the previous CTA, and
       // from the next what it has of them (u's row h on the last)
@@ -233,21 +186,7 @@ __device__ void end_stage(const Ctx& c, Halos& hx, const Written<S>* w,
       }
       bytes += 4u * in * fw;
     }
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar), "r"(bytes) : "memory");
-    const uint32_t parity = (hx.k >> 1) & 1;
-    for (uint32_t spins = 0;; ++spins) {
-      uint32_t done;
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
-          "selp.u32 %0, 1, 0, p;\n\t}"
-          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-      if (done) break;
-      if (spins == (1u << 26)) __trap();  // a lost halo: fail, do not hang
-    }
-    ++hx.k;
+    halo_wait(hx, bytes);
   }
 }
 
@@ -552,13 +491,7 @@ __device__ void run(const Params& p) {
   // shared mode: two mbarriers at the start of dynamic shared memory (the
   // halos of even and odd stages), the slots after them
   Halos hx{smem_u32(smem), 0};
-  if (S && threadIdx.x == 0 && threadIdx.y == 0) {
-    asm volatile(
-        "mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
-        "mbarrier.init.shared::cta.b64 [%1], 1;\n\t"
-        "fence.mbarrier_init.release.cluster;" :: "r"(hx.bar), "r"(hx.bar + 8)
-        : "memory");
-  }
+  if (S && threadIdx.x == 0 && threadIdx.y == 0) halo_init(hx.bar);
   const long slot = slot_floats(S, p.rows, c.halo, h, w);
   float* b = S ? smem + kBarBytes / 4
                : p.scratch + (long)cluster_id() * kSlots * slot;
@@ -609,12 +542,7 @@ fused_multi_step_kernel(Params p) {
 
 using KernelFn = void (*)(Params);
 
-// One instantiation and the attributes set on it so far.
-struct Instance {
-  KernelFn fn;
-  int smem_set;
-  bool nonportable_set;
-};
+using Instance = ClusterKernel<KernelFn>;
 
 // Tap radii 1 and 2 are compiled in; any other takes the runtime radius.
 Instance& instance_for(int multi, int shared, int max_disp) {
@@ -631,42 +559,6 @@ Instance& instance_for(int multi, int shared, int max_disp) {
   };
   const int k = max_disp == 1 ? 0 : (max_disp == 2 ? 1 : 2);
   return table[multi != 0][shared != 0][k];
-}
-
-// Dynamic shared memory and the non-portable cluster size, set on each
-// instantiation as its launches need them (the largest size asked so far).
-cudaError_t configure(Instance& k, int smem, int cluster) {
-  cudaError_t e = cudaSuccess;
-  if (smem > k.smem_set) {
-    e = cudaFuncSetAttribute((const void*)k.fn,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    k.smem_set = smem;
-  }
-  if (cluster > 8 && !k.nonportable_set) {
-    e = cudaFuncSetAttribute((const void*)k.fn,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    k.nonportable_set = true;
-  }
-  return e;
-}
-
-cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int cluster,
-                                 int clusters, int bx, int by, int smem,
-                                 cudaStream_t st) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * clusters, 1, 1);
-  cfg.blockDim = dim3(bx, by, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 bool plan_ok(int h, int w, int max_disp, int cluster, int rows, int bx, int by,

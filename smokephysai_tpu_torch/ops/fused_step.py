@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .jacobi import jacobi_pressure_reference
+from .jacobi import jacobi_pressure_reference, row_threads
 from .stencil import diffuse_reference, shift
 
 Tensor = torch.Tensor
@@ -198,19 +198,6 @@ class LaunchPlan:
 ActiveCount = Callable[[int, int, int, int, str], int]
 
 
-def _row_threads(rows: int, by_max: int):
-    """Thread rows per CTA to try: each a count that splits the stripe's
-    rows into equal passes, from the most threads to one row."""
-    out, passes = [], -(-rows // by_max)
-    while True:
-        by = -(-rows // passes)
-        if not out or by < out[-1]:
-            out.append(by)
-        if by == 1:
-            return out
-        passes *= 2
-
-
 def plan_candidates(episodes: int, h: int, w: int, max_disp: int,
                     max_active_clusters: ActiveCount, mode: str):
     """Every plan of `mode` ("shared" or "global") that the card can
@@ -227,7 +214,7 @@ def plan_candidates(episodes: int, h: int, w: int, max_disp: int,
         if smem > SMEM_MAX:
             continue
         for bx in ROW_THREADS:
-            for by in _row_threads(rows, MAX_THREADS // bx):
+            for by in row_threads(rows, MAX_THREADS // bx):
                 active = max_active_clusters(cluster, bx, by, smem, mode)
                 if active < 1:
                     continue

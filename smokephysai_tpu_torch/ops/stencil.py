@@ -4,9 +4,11 @@
 f + coef * (up + down + left + right - 4 f) with a replicate-padded 5-point
 Laplacian, over the last two dims of a float32 field (a leading batch of
 episodes is allowed): one kernel launch for a CUDA field,
-`diffuse_reference` for a CPU field. Counterpart of the JAX package's
-`diffuse_pallas`; the kernel adds in the plain version's order and is built
-without FMA contraction, so the two agree to the bit.
+`diffuse_reference` for a CPU field. `diffuse_fields(u, v, density,
+coef_uv, coef_d)` updates a solver step's three fields in one launch of the
+same kernel. Counterpart of the JAX package's `diffuse_pallas`; the kernel
+adds in the plain version's order and is built without FMA contraction, so
+the two agree to the bit.
 
 `shift` is the tap that the plain solver versions share (the Jacobi sweep,
 the fused step's tent-shift advection).
@@ -56,11 +58,41 @@ def diffuse_reference(f: Tensor, coef) -> Tensor:
 
 
 def _lib():
+    field = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float]
     return _build.load(SOURCE, FLAGS, {
-        "diffuse_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_void_p],
+        "diffuse_launch": [ctypes.c_int] + field * 3 + [ctypes.c_void_p],
     })
+
+
+def _check(name: str, field: Tensor):
+    if field.dtype != torch.float32:
+        raise TypeError(f"diffuse: {name} must be float32, got {field.dtype}")
+    if field.dim() < 2 or min(field.shape[-2:]) < 1:
+        raise ValueError(f"diffuse: {name} must be [..., H, W], got {tuple(field.shape)}")
+    if not field.is_contiguous():
+        raise ValueError(f"diffuse: {name} must be contiguous")
+    if field.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"diffuse: unsupported device {field.device}")
+
+
+_UNUSED = (None, None, 0, 0, 0, 0.0)  # a field slot the launch leaves out
+
+
+def _launch(fields, coefs):
+    """One launch over the checked CUDA fields, each with its float32
+    coefficient; returns their updates."""
+    outs = [torch.empty_like(f) for f in fields]
+    args = []
+    for f, o, c in zip(fields, outs, coefs):
+        h, w = f.shape[-2], f.shape[-1]
+        args += (f.data_ptr(), o.data_ptr(), f.numel() // (h * w), h, w, float(c))
+    args += _UNUSED * (3 - len(fields))
+    rc = _lib().diffuse_launch(len(fields), *args,
+                               torch.cuda.current_stream(fields[0].device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"diffuse kernel launch failed: cudaError {rc}")
+    return outs
 
 
 def diffuse(field: Tensor, coef) -> Tensor:
@@ -69,23 +101,31 @@ def diffuse(field: Tensor, coef) -> Tensor:
     once; a CPU field takes `diffuse_reference`. The input is not
     modified."""
     global LAUNCHES
-    if field.dtype != torch.float32:
-        raise TypeError(f"diffuse: field must be float32, got {field.dtype}")
-    if field.dim() < 2 or min(field.shape[-2:]) < 1:
-        raise ValueError(f"diffuse: field must be [..., H, W], got {tuple(field.shape)}")
-    if not field.is_contiguous():
-        raise ValueError("diffuse: field must be contiguous")
+    _check("field", field)
     coef = np.float32(coef)
     if field.device.type == "cpu":
         return diffuse_reference(field, coef)
-    if field.device.type != "cuda":
-        raise ValueError(f"diffuse: unsupported device {field.device}")
-    h, w = field.shape[-2], field.shape[-1]
-    out = torch.empty_like(field)
-    stream = torch.cuda.current_stream(field.device).cuda_stream
-    rc = _lib().diffuse_launch(field.data_ptr(), out.data_ptr(),
-                               field.numel() // (h * w), h, w, float(coef), stream)
-    if rc != 0:
-        raise RuntimeError(f"diffuse kernel launch failed: cudaError {rc}")
+    out, = _launch([field], [coef])
     LAUNCHES += 1
     return out
+
+
+def diffuse_fields(u: Tensor, v: Tensor, density: Tensor, coef_uv, coef_d):
+    """A solver step's diffusion of its three staggered float32 fields, u
+    [..., H+1, W] and v [..., H, W+1] with `coef_uv`, the density [..., H, W]
+    with `coef_d` (float32 coefficients): each exactly what `diffuse` gives
+    it. CUDA fields launch the kernel once for all three; CPU fields take
+    `diffuse_reference` three times. Returns (u, v, density); the inputs
+    are not modified."""
+    global LAUNCHES
+    fields = (u, v, density)
+    for name, f in zip(("u", "v", "density"), fields):
+        _check(name, f)
+        if f.device != density.device:
+            raise ValueError("diffuse_fields: u, v and density must be on one device")
+    coefs = (np.float32(coef_uv), np.float32(coef_uv), np.float32(coef_d))
+    if density.device.type == "cpu":
+        return tuple(diffuse_reference(f, c) for f, c in zip(fields, coefs))
+    outs = _launch(fields, coefs)
+    LAUNCHES += 1
+    return tuple(outs)

@@ -198,9 +198,10 @@ def step(
     positive runs the fused step kernel (max_disp 1 unless given) on any
     grid: it keeps the fields in global memory, so it has no size limit.
     Otherwise the per-op pipeline runs, with max_disp 2 unless given
-    (0: the gather advection); under `use_pallas` its three diffusions and
-    its Jacobi solve are the stencil and Jacobi kernels, as the JAX
-    package's are `diffuse_pallas` and `jacobi_pressure_pallas`.
+    (0: the gather advection); under `use_pallas` its three diffusions are
+    one launch of the stencil kernel and its Jacobi solve the Jacobi kernel,
+    as the JAX package's are three `diffuse_pallas` and one
+    `jacobi_pressure_pallas`.
     """
     if _takes_fused(use_pallas, vorticity_eps, max_disp):
         u, v, p, d = _fused.fused_step(
@@ -210,10 +211,7 @@ def step(
         return SimState(u=u, v=v, p=p, density=d)
     if max_disp is None:
         max_disp = 2
-    if use_pallas:
-        diffuse_fn, jacobi_fn = _stencil.diffuse, _jacobi.jacobi_pressure
-    else:
-        diffuse_fn, jacobi_fn = _stencil.diffuse_reference, _jacobi.jacobi_pressure_reference
+    jacobi_fn = _jacobi.jacobi_pressure if use_pallas else _jacobi.jacobi_pressure_reference
 
     # 1. buoyancy (along the w slice of v)
     v = state.v.clone()
@@ -223,13 +221,17 @@ def step(
     if vorticity_eps > 0.0:
         state = vorticity_confinement(state, dt, vorticity_eps)
 
-    # 2. diffusion (density at a tenth of the viscosity, formed in float32)
+    # 2. diffusion (density at a tenth of the viscosity, formed in float32);
+    # under use_pallas the three fields in one launch of the stencil kernel
     dt32, visc32 = np.float32(dt), np.float32(viscosity)
-    state = state.replace(
-        u=diffuse_fn(state.u, dt32 * visc32),
-        v=diffuse_fn(state.v, dt32 * visc32),
-        density=diffuse_fn(state.density, dt32 * (visc32 * np.float32(0.1))),
-    )
+    coef_uv, coef_d = dt32 * visc32, dt32 * (visc32 * np.float32(0.1))
+    if use_pallas:
+        u, v, d = _stencil.diffuse_fields(state.u, state.v, state.density, coef_uv, coef_d)
+    else:
+        diffuse = _stencil.diffuse_reference
+        u, v, d = (diffuse(state.u, coef_uv), diffuse(state.v, coef_uv),
+                   diffuse(state.density, coef_d))
+    state = state.replace(u=u, v=v, density=d)
 
     # 3. pressure projection
     state = pressure_projection(state, dt, num_jacobi_iters, jacobi_fn)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 from smokephysai_tpu.ops.pallas.attention import (
     _flash_tokens_fwd_lse,
     flash_attention_tokens as jflash,

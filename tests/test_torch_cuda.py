@@ -241,11 +241,12 @@ def _pressure_inputs(dev, episodes, h, w, seed=5):
 @pytest.mark.parametrize("iters", [0, 1, 20])
 @pytest.mark.parametrize("episodes", [1, 3])
 def test_jacobi_kernel_matches_plain(cuda, episodes, iters):
-    """The tiled Jacobi kernel at 256^2 against its plain version: bit-equal
-    (built without FMA contraction, same order of additions), one launch,
-    inputs not modified."""
+    """The Jacobi kernel at 256^2 (the cluster mode) against its plain
+    version: bit-equal (built without FMA contraction, same order of
+    additions), one launch, inputs not modified."""
     p, div = _pressure_inputs(cuda, episodes, 256, 256)
     before = (p.clone(), div.clone())
+    assert jacobi_ops.launch_plan(episodes, 256, 256, device=cuda).mode == "cluster"
     launches = jacobi_ops.LAUNCHES
     out = jacobi_ops.jacobi_pressure(p, div, iters)
     assert jacobi_ops.LAUNCHES == launches + 1
@@ -254,17 +255,85 @@ def test_jacobi_kernel_matches_plain(cuda, episodes, iters):
 
 
 @pytest.mark.parametrize("h,w,iters", [(37, 53, 20), (2, 2, 3), (3, 70, 1), (101, 67, 45),
-                                       (2048, 2048, 20)],
-                         ids=["odd", "2x2", "3x70", "two-passes", "2048"])
+                                       (2048, 2048, 20), (3, 8, 5), (33, 260, 7)],
+                         ids=["odd", "2x2", "3x70", "two-passes", "2048", "last-stripe-1-row",
+                              "260-wide"])
 def test_jacobi_kernel_odd_and_large_grids(cuda, h, w, iters):
-    """Bit-equal on odd and tiny grids, past MAX_HALO sweeps (two passes
-    through scratch, counted as two launches) and on a 2048^2 grid, where
-    the TPU kernel tiles."""
+    """Bit-equal on odd and tiny grids, past MAX_HALO sweeps, on a 3 x 8
+    grid whose last stripe has one row, at 260 columns (65 quads: a warp's
+    ends inside a row, idle lanes past it) and on a
+    2048^2 grid, where the TPU kernel tiles; as many launches as the plan
+    says (one in the cluster mode, one per MAX_HALO sweeps tiled). The
+    tiled mode forced on each grid through the wrapper's launcher gives the
+    same bits (past MAX_HALO: two passes through scratch)."""
     p, div = _pressure_inputs(cuda, 2 if h < 2048 else 1, h, w)
+    plan = jacobi_ops.launch_plan(p.shape[0], h, w, device=cuda)
+    assert plan.mode == ("tiled" if h == 2048 else "cluster")
     launches = jacobi_ops.LAUNCHES
     out = jacobi_ops.jacobi_pressure(p, div, iters)
-    assert jacobi_ops.LAUNCHES == launches + -(-iters // jacobi_ops.MAX_HALO)
-    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, iters))
+    assert jacobi_ops.LAUNCHES == launches + plan.launches(iters)
+    want = jacobi_ops.jacobi_pressure_reference(p, div, iters)
+    assert torch.equal(out, want)
+    assert torch.equal(jacobi_ops._launch(p, div, iters, jacobi_ops.TILED), want)
+
+
+def test_jacobi_kernel_unaligned_planes(cuda):
+    """Planes that are not 16-byte aligned (views one float into a buffer)
+    take one cell a thread whatever the plan's strip: the same bits."""
+    g = torch.Generator().manual_seed(8)
+    flat = torch.randn(2, 1 + 2 * 256 * 256, generator=g).to(cuda)
+    p = flat[0, 1:].view(2, 256, 256)
+    div = flat[1, 1:].view(2, 256, 256)
+    assert p.data_ptr() % 16 and div.data_ptr() % 16
+    assert jacobi_ops.launch_plan(2, 256, 256, device=cuda).strip > 0
+    out = jacobi_ops.jacobi_pressure(p, div, 20)
+    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, 20))
+
+
+def _card_jacobi_count():
+    return jacobi_ops.card_active_clusters(torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256), (3, 256, 256), (2, 37, 53), (1, 512, 512)],
+                         ids=["256", "3x256", "odd", "512"])
+def test_jacobi_kernel_every_plan_bit_equal(cuda, shape):
+    """Every cluster plan the card holds (each cluster size and thread shape
+    of `plan_candidates`: register strips of 1, 2 or 4 rows where w is a
+    multiple of 4, one cell a thread at 37 x 53) and the tiled mode give
+    the plain version's bits at 0, 1, 20 and 45 sweeps. At 512^2 only
+    clusters of 16 CTAs fit."""
+    p, div = _pressure_inputs(cuda, *shape)
+    plans = list(jacobi_ops.plan_candidates(*shape, _card_jacobi_count()))
+    assert len({pl.cluster for pl in plans}) > 1 or shape[1] == 512
+    assert {pl.strip > 0 for pl in plans} == {shape[2] % 4 == 0}
+    for iters in (0, 1, 20, 45):
+        want = jacobi_ops.jacobi_pressure_reference(p, div, iters)
+        for plan in plans + [jacobi_ops.TILED]:
+            got = jacobi_ops._launch(p, div, iters, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (iters, plan.describe())
+
+
+@pytest.mark.parametrize("shape,mode,cluster,clusters", [
+    ((1, 256, 256), "cluster", 16, 1), ((8, 256, 256), "cluster", None, 8),
+    ((1, 512, 512), "cluster", 16, 1), ((1, 1024, 1024), "tiled", 0, 0),
+    ((1, 2048, 2048), "tiled", 0, 0)], ids=["256", "8x256", "512", "1024", "2048"])
+def test_jacobi_kernel_plan_on_the_card(cuda, shape, mode, cluster, clusters):
+    """The plan a call takes with the card's occupancy: one cluster of 16
+    CTAs for the served 256^2 episode and for the 512^2 plume grid; the
+    8-episode chunk in one wave of 8 clusters; 1024^2 and 2048^2 tiled, as
+    their stripes do not fit the cluster's shared memory. Each bit-equal at
+    20 sweeps, one launch."""
+    plan = jacobi_ops.launch_plan(*shape, device=cuda)
+    assert plan == jacobi_ops.plan_launch(*shape, _card_jacobi_count())
+    assert (plan.mode, plan.clusters) == (mode, clusters)
+    if cluster is not None:
+        assert plan.cluster == cluster
+    p, div = _pressure_inputs(cuda, *shape)
+    launches = jacobi_ops.LAUNCHES
+    out = jacobi_ops.jacobi_pressure(p, div, 20)
+    assert jacobi_ops.LAUNCHES == launches + 1
+    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, 20))
 
 
 @pytest.mark.parametrize("field", ["u", "v", "density"])
@@ -282,6 +351,24 @@ def test_diffuse_kernel_matches_plain(cuda, field):
     assert torch.equal(f, before)
 
 
+@pytest.mark.parametrize("episodes", [1, 2, 8])
+def test_diffuse_fields_kernel_matches_plain(cuda, episodes):
+    """The step's three staggered 256^2 fields in one launch: each bit-equal
+    to its plain version and to the one-field entry, inputs kept."""
+    g = torch.Generator().manual_seed(7)
+    fields = [torch.randn(episodes, *shape, generator=g).to(cuda)
+              for shape in ((257, 256), (256, 257), (256, 256))]
+    before = [f.clone() for f in fields]
+    launches = stencil_ops.LAUNCHES
+    outs = stencil_ops.diffuse_fields(*fields, 1e-5, 1e-6)
+    assert stencil_ops.LAUNCHES == launches + 1
+    for f, out, coef in zip(fields, outs, (1e-5, 1e-5, 1e-6)):
+        assert torch.equal(out, stencil_ops.diffuse_reference(f, coef))
+        assert torch.equal(out, stencil_ops.diffuse(f, coef))
+    for f, b in zip(fields, before):
+        assert torch.equal(f, b)
+
+
 def test_stencil_kernels_refuse_bad_inputs(cuda):
     p, div = _pressure_inputs(cuda, 1, 16, 16)
     with pytest.raises(TypeError, match="float32"):
@@ -296,6 +383,10 @@ def test_stencil_kernels_refuse_bad_inputs(cuda):
         stencil_ops.diffuse(p.transpose(-1, -2), 0.1)
     with pytest.raises(ValueError, match="unsupported device"):
         stencil_ops.diffuse(torch.empty(4, 4, device="meta"), 0.1)
+    with pytest.raises(ValueError, match="one device"):
+        stencil_ops.diffuse_fields(p, p.cpu(), p, 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil_ops.diffuse_fields(p, p.transpose(-1, -2), p, 0.1, 0.1)
 
 
 def _qkv(dev, dtype, batch=2, length=256, width=256, seed=3):

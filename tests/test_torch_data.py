@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 from smokephysai_tpu.data import synthetic as jsyn
 from smokephysai_tpu.physics import chaos as jchaos
 from smokephysai_tpu.physics import solver as jsolver

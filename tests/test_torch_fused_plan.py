@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 from smokephysai_tpu.physics import solver as jsolver
 from smokephysai_tpu_torch.ops import fused_step as step_ops
 from smokephysai_tpu_torch.physics import solver as tsolver

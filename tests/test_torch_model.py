@@ -16,6 +16,7 @@ import pytest
 import torch
 from jax.tree_util import keystr, tree_flatten_with_path
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 import smokephysai_tpu.models.chaos_attention as jca
 from smokephysai_tpu.models import SmokePhysNet as JaxNet
 from smokephysai_tpu.models.torch_port import convert_torch_state_dict, synth_torch_state

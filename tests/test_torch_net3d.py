@@ -17,6 +17,7 @@ import pytest
 import torch
 from jax.tree_util import keystr
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 import smokephysai_tpu.models.chaos_attention as jca
 from smokephysai_tpu.models import net3d as jnet3d
 from smokephysai_tpu_torch.models.convert import (

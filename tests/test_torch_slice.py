@@ -20,6 +20,7 @@ import torch
 import yaml
 from jax.tree_util import keystr, tree_flatten_with_path
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 import smokephysai_tpu.models.chaos_attention as jca
 from smokephysai_tpu.models import SmokePhysNet as JaxNet
 from smokephysai_tpu.physics.simulator import SmokeSimulator as JaxSimulator

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 from smokephysai_tpu.ops.pallas.fused_step import fused_step_pallas
 from smokephysai_tpu.physics import fractal as jfractal
 from smokephysai_tpu.physics import solver as jsolver

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 from smokephysai_tpu.data import synthetic3d as jsyn3d
 from smokephysai_tpu.ops.pallas.cg3d import cg_pressure_pallas
 from smokephysai_tpu.physics import chaos as jchaos

@@ -18,6 +18,7 @@ import pytest
 import torch
 from jax.tree_util import keystr
 
+import _torch_threads  # noqa: F401  (each test worker's share of the cores)
 import smokephysai_tpu.models.chaos_attention as jca
 import smokephysai_tpu.models.net as jnet
 from smokephysai_tpu.models import SmokePhysNet as JaxNet
