@@ -103,7 +103,24 @@ From the root of a checkout, with one CUDA card:
    backward's and the split pair's in turns with SDPA's backward; the CG
    kernel's device time too), and the 3D step's device time by kernel
    (torch.profiler);
-10. prints the kernels' JSON line, the SASS counts, the nvidia-smi line and, last,
+10. gate phase: the quality path through the port's `benchmark` and
+   `evaluate` entry points at full width: the 50-sample gate of
+   `config/config.yaml` (float32 einsum) on `smokephysnet_128_best.npz` with
+   the JAX CLI's recorded draws (`tests/goldens/gate_draws_128x128_n50_s0.npz`:
+   sources, frames and chaos fields; one multi-step launch for the 50
+   episodes), failing over MSE 0.0022, the same episodes under the port's
+   own chaos stream and the CLI's default (all of the port's own draws);
+   the 256^2 vorticity gate of `config_256_vorticity.yaml` on
+   `smokephysnet_256_vort_best.npz` (20 Jacobi and 20 diffusion launches),
+   failing over 0.0022 and flagging a gap over 10 % to PARITY.md's
+   0.000650; the five-section evaluation report of `config/config.yaml` at
+   50 samples and 50 scenarios with the seconds and launches of each
+   section, failing on a NaN or an infinity; its PGD section again under
+   `tpu.use_flash` (float32 flash kernels: 12 lean, 60 forward-with-
+   logsumexp and 60 backward launches); and the volumetric branches
+   at 2 volumes of 128^3 (the benchmark's model row and baselines, the
+   report's physics_consistency and reconstruction; 24 CG launches each);
+11. prints the kernels' JSON line, the SASS counts, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
@@ -195,6 +212,18 @@ VOL_FLASH_RECON = 1e-4  # use_flash (head_dim 32, float32 kernel) vs einsum
 # kernels, float32) vs einsum: ||d|| / ||ref||
 VOL_FLASH_GRAD_REL_NORM = 1e-4
 PARITY_VOL_MSE = 0.000489  # PARITY.md: the JAX model on JAX's held-out draws
+
+# the gate phase: the benchmark and evaluate entry points at full width
+GATE_CONFIG = os.path.join(ROOT, "config", "config.yaml")  # float32 einsum
+GATE_DRAWS = os.path.join(ROOT, "tests", "goldens", "gate_draws_128x128_n50_s0.npz")
+VORT_GATE_DRAWS = os.path.join(ROOT, "tests", "goldens", "gate_draws_256x256_n50_s0.npz")
+GATE_SAMPLES = 50
+GATE_MSE = 0.0022  # PARITY.md: the repo's 50-sample quality gate
+PARITY_GATE_MSE = 0.002160  # PARITY.md: smokephysnet_128_best.npz, JAX CLI on a TPU
+PARITY_VORT_MSE, PARITY_VORT_CORR = 0.000650, 0.9963  # PARITY.md, 256^2 vorticity
+VORT_GAP = 0.10  # a larger gap to PARITY's 256^2 figure is written up in PERF.md
+EVAL_PHYSICS_TESTS = 50
+GATE_VOLUMES = 2  # the volumetric branches at 2 volumes of 128^3
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
 BIG_GRID = 1024  # config_streaming_1024.yaml's grid: the fused step's global mode
@@ -1492,6 +1521,176 @@ def volumetric_phase(dev, name, trace):
             "width": width, "heads": heads}
 
 
+def gate_phase(dev):
+    """The quality path through the port's benchmark and evaluate entry
+    points at full width: the 128^2 and 256^2 50-sample gates on the JAX
+    CLI's recorded draws (and the 128^2 one with the port's own streams),
+    the five-section evaluation report, and the volumetric branches at 2
+    volumes of 128^3. Each run's kernel launches are counted and checked."""
+    import torch
+
+    from smokephysai_tpu_torch import benchmark as bench
+    from smokephysai_tpu_torch import evaluate as evaluate_cli
+    from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    results = {}
+
+    def numbers(tree):
+        for v in tree.values():
+            yield from numbers(v) if isinstance(v, dict) else [float(v)]
+
+    def gate(label, config, checkpoint, draws, own=False):
+        """evaluate_model over the held-out batches; `draws` the recorded
+        JAX draws or None (the port's own streams)."""
+        seed = config["tpu"]["seed"]
+        samples = bench.read_samples(draws, config, GATE_SAMPLES) if draws else None
+        model = load_model(config, checkpoint, dev)
+        reset_counts()
+        t = time.time()
+        batches = bench.held_out_batches(config, GATE_SAMPLES, samples, dev)
+        predict = make_predictor(model, chaos_seed=seed,
+                                 chaos_traj=samples["chaos_traj"] if samples else None)
+        res = bench.evaluate_model(predict, batches())
+        torch.cuda.synchronize()
+        counts = read_counts()
+        say(f"gate {label}: {GATE_SAMPLES} samples, MSE {res['mse']:.6f}, physics "
+            f"correlation {res['physics_correlation']:.4f}, "
+            f"{res['inference_time'] * 1e3:.3f} ms per sample (batch "
+            f"{bench.BATCH_SIZE}, timed to the card's completion), "
+            f"{time.time() - t:.2f} s with the episodes; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not all(math.isfinite(res[k]) for k in ("mse", "physics_correlation")):
+            fail(f"gate {label}: non-finite results {res}")
+        out = {"result": res, "counts": counts}
+        if own:
+            own_predict = make_predictor(model, chaos_seed=seed)
+            own_res = bench.evaluate_model(own_predict, batches())
+            say(f"gate {label}, the same episodes under the port's own chaos stream: MSE "
+                f"{own_res['mse']:.6f}, physics correlation "
+                f"{own_res['physics_correlation']:.4f}")
+            out["own_chaos"] = own_res
+        return out
+
+    # a. the 128^2 gate: float32 einsum, the numerics behind PARITY.md's figures
+    config = load_config(GATE_CONFIG)
+    g128 = gate("128^2 (config.yaml, smokephysnet_128_best.npz, the JAX CLI's draws)",
+                config, CHECKPOINT, GATE_DRAWS, own=True)
+    expect_counts("gate 128^2", g128["counts"], fused_multi_step=1)
+    mse = g128["result"]["mse"]
+    say(f"gate 128^2: MSE {mse:.6f} against PARITY.md's {PARITY_GATE_MSE} (the JAX CLI "
+        f"on a TPU; gap {100 * (mse - PARITY_GATE_MSE) / PARITY_GATE_MSE:+.2f} %), "
+        f"bound {GATE_MSE}")
+    if not mse <= GATE_MSE:
+        fail(f"the 128^2 gate fails: MSE {mse:.6f} > {GATE_MSE}")
+    default = gate("128^2, the CLI's default (the port's own sources, frames and chaos "
+                   "stream)", config, CHECKPOINT, None)
+    expect_counts("gate 128^2 default", default["counts"], fused_multi_step=1)
+    results["gate_128"] = g128
+    results["gate_128_default"] = default
+
+    # b. the 256^2 vorticity gate: the per-op step, Jacobi and diffusion kernels
+    vconfig = load_config(VORT_CONFIG)
+    g256 = gate("256^2 vorticity (config_256_vorticity.yaml, smokephysnet_256_vort_best.npz, "
+                "the JAX CLI's draws)", vconfig, VORT_CHECKPOINT, VORT_GATE_DRAWS)
+    steps = vconfig["data"]["sequence_length"]
+    expect_counts("gate 256^2", g256["counts"], jacobi_pressure=steps, diffuse=steps)
+    vmse, vcorr = g256["result"]["mse"], g256["result"]["physics_correlation"]
+    gap = (vmse - PARITY_VORT_MSE) / PARITY_VORT_MSE
+    say(f"gate 256^2: MSE {vmse:.6f}, correlation {vcorr:.4f} against PARITY.md's "
+        f"{PARITY_VORT_MSE} / {PARITY_VORT_CORR} (gap {100 * gap:+.2f} %"
+        f"{'; over 10 %: see PERF.md' if abs(gap) > VORT_GAP else ''}), bound {GATE_MSE}")
+    if not vmse <= GATE_MSE:
+        fail(f"the 256^2 gate fails: MSE {vmse:.6f} > {GATE_MSE}")
+    results["gate_256"] = g256
+
+    # c. the evaluation report: five sections, launches and seconds per section
+    sections = {}
+    mark = {"stage": None, "t": time.time()}
+
+    def progress(stage):
+        torch.cuda.synchronize()
+        if mark["stage"] is not None:
+            sections[mark["stage"]] = (time.time() - mark["t"],
+                                       {k: v for k, v in read_counts().items() if v})
+        reset_counts()
+        mark.update(stage=stage, t=time.time())
+
+    t = time.time()
+    report = evaluate_cli.run_evaluation(config, CHECKPOINT, GATE_SAMPLES, EVAL_PHYSICS_TESTS,
+                                         device=dev, progress=progress)
+    say(f"evaluate (config.yaml, smokephysnet_128_best.npz, {GATE_SAMPLES} samples, "
+        f"{EVAL_PHYSICS_TESTS} scenarios) in {time.time() - t:.2f} s: {json.dumps(report)}")
+    for stage, (secs, counts) in sections.items():
+        say(f"  evaluate {stage}: {secs:.3f} s, launches {counts}")
+    if set(report) != set(evaluate_cli.SECTIONS):
+        fail(f"the evaluation report lacks sections: {sorted(report)}")
+    if not all(math.isfinite(x) for x in numbers(report)):
+        fail("the evaluation report holds a NaN or an infinity")
+    if sections["generate episodes"][1] != {"fused_multi_step": 1} or any(
+            c for stage, (_, c) in sections.items() if stage != "generate episodes"):
+        fail(f"evaluate launched other kernels than one multi-step for its episodes: {sections}")
+    results["evaluate"] = {"report": report, "sections": sections}
+
+    # e. PGD under --set tpu.use_flash=true: the forward-with-logsumexp and
+    # backward kernels (float32) under autograd, the lean kernel for the
+    # two inference-mode forwards
+    flash_config = json.loads(json.dumps(config))
+    flash_config["tpu"]["use_flash"] = True
+    sections.clear()
+    mark["stage"] = None
+    t = time.time()
+    flash_report = evaluate_cli.run_evaluation(flash_config, CHECKPOINT, GATE_SAMPLES,
+                                               sections={"adversarial"}, device=dev,
+                                               progress=progress)
+    layers = config["model"]["num_layers"]
+    counts = sections["adversarial"][1]
+    say(f"evaluate adversarial under tpu.use_flash=true in {time.time() - t:.2f} s "
+        f"(PGD {sections['adversarial'][0]:.3f} s): {json.dumps(flash_report)} against "
+        f"einsum's {json.dumps(report['adversarial'])}; launches {counts}")
+    pgd_steps = 10  # adversarial_test's default
+    if counts != {"flash_attention_tokens": 2 * layers,
+                  "flash_attention_tokens_fwd_lse": pgd_steps * layers,
+                  "flash_attention_tokens_bwd": pgd_steps * layers}:
+        fail(f"PGD under use_flash launched {counts}")
+    if not all(math.isfinite(x) for x in numbers(flash_report)):
+        fail("the use_flash PGD report holds a NaN or an infinity")
+
+    # d. the volumetric branches at 2 volumes of 128^3
+    vol = load_config(VOL_CONFIG)
+    vol_model = load_model(vol, VOL_CHECKPOINT, dev)
+    reset_counts()
+    t = time.time()
+    batches = bench.held_out_batches(vol, GATE_VOLUMES, None, dev)
+    row = bench.evaluate_model(make_predictor(vol_model, chaos_seed=vol["tpu"]["seed"]),
+                               batches())
+    cv = bench.evaluate_traditional_cv3d(batches())
+    counts = read_counts()
+    solves = GATE_VOLUMES * vol["data"]["sequence_length"]
+    say(f"benchmark 128^3 ({GATE_VOLUMES} volumes, batch 1) in {time.time() - t:.2f} s: "
+        f"model MSE {row['mse']:.6f}, correlation {row['physics_correlation']:.4f}, "
+        f"{row['inference_time'] * 1e3:.3f} ms per volume; baselines {cv} (cv2 "
+        f"{'present' if bench.have_cv2() else 'absent: persistence only'}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    expect_counts("benchmark 128^3", counts, cg_pressure=solves)
+    del vol_model
+    reset_counts()
+    t = time.time()
+    vreport = evaluate_cli.run_evaluation(vol, VOL_CHECKPOINT, GATE_VOLUMES, device=dev,
+                                          sections={"physics_consistency", "reconstruction"})
+    counts = read_counts()
+    say(f"evaluate 128^3 ({GATE_VOLUMES} volumes) in {time.time() - t:.2f} s: "
+        f"{json.dumps(vreport)}; launches { {k: v for k, v in counts.items() if v} }")
+    expect_counts("evaluate 128^3", counts, cg_pressure=solves)
+    if not (math.isfinite(row["mse"]) and all(math.isfinite(x) for x in numbers(vreport))
+            and math.isfinite(cv["Persistence"]["mse"])):
+        fail("non-finite volumetric benchmark or report")
+    results["volumetric"] = {"row": row, "baselines": cv, "report": vreport}
+    say(f"gate phase: {time.time() - t_phase:.1f} s")
+    return results
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--trace"]):
@@ -2040,6 +2239,9 @@ def main():
 
     # ---------------------------------------------------------------- volumetric
     vol = volumetric_phase(dev, name, trace)
+
+    # ---------------------------------------------------------------- quality gate
+    gate_phase(dev)
 
     # ---------------------------------------------------------------- report
     fs = timings[("fused_step", 1)]

@@ -112,11 +112,21 @@ def generate_dataset(
     use_pallas: bool = False,
     vorticity_eps: float = 0.0,
     device="cuda",
+    source_params: Optional[Dict] = None,
 ) -> Dict[str, np.ndarray]:
     """`num_samples` episodes, simulated on `device` in chunks of
     `chunk_size`. Returns host arrays {sequences [N, T, H, W], chaos
-    [N, 3], source_xy, source_intensity, source_active} (the cache's keys)."""
-    params = sample_source_params(generator, num_samples, grid_size)
+    [N, 3], source_xy, source_intensity, source_active} (the cache's keys).
+    `source_params` ({xy, intensity, active}, as `sample_source_params`
+    returns them) gives the sources instead of drawing them."""
+    if source_params is None:
+        params = sample_source_params(generator, num_samples, grid_size)
+    else:
+        params = {k: torch.as_tensor(np.asarray(source_params[k]), dtype=torch.float32)
+                  for k in ("xy", "intensity", "active")}
+        if params["xy"].shape[0] != num_samples:
+            raise ValueError(f"source_params hold {params['xy'].shape[0]} episodes, "
+                             f"not {num_samples}")
     seqs, labels = [], []
     for start in range(0, num_samples, chunk_size):
         chunk = slice(start, min(start + chunk_size, num_samples))
@@ -164,7 +174,8 @@ class SyntheticSmokeDataset:
     device when they fit: float32 under `DEVICE_BYTES_LIMIT` bytes, float16
     storage when only half the bytes fit (the frames are cast back to
     float32 per batch and the continuity term comes from float32
-    per-episode constants), on the host otherwise."""
+    per-episode constants), on the host otherwise. `source_params` gives
+    the episodes' sources instead of drawing them from `seed`."""
 
     DEVICE_BYTES_LIMIT = 4e9
 
@@ -178,6 +189,7 @@ class SyntheticSmokeDataset:
         use_pallas: bool = False,
         vorticity_eps: float = 0.0,
         device="cuda",
+        source_params: Optional[Dict] = None,
     ):
         self.num_samples = num_samples
         self.grid_size = tuple(grid_size)
@@ -194,6 +206,7 @@ class SyntheticSmokeDataset:
                 torch.Generator().manual_seed(seed), num_samples, self.grid_size,
                 sequence_length, use_pallas=use_pallas,
                 vorticity_eps=vorticity_eps, device=self.device,
+                source_params=source_params,
             )
             if cache_path:
                 os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)

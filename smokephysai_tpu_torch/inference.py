@@ -6,9 +6,10 @@
 Same flow as the root `inference.py`: simulate the 20-frame test sequence
 from three fixed sources, predict every next frame and its physics features
 in one batched forward, and write ground_truth.png, predictions.png,
-physics_features.png and comparison.png to --output_dir. Runs on the card
-unless --device cpu is given. `--save_attention` is not ported yet and is
-refused.
+physics_features.png and comparison.png to --output_dir. `--save_attention`
+also writes attention_maps.png: layer 0's attention probabilities on the
+first input frame, from one diagnostic forward on the einsum path. Runs on
+the card unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -45,60 +46,52 @@ def generate_test_sequence(simulator: SmokeSimulator, sequence_length: int = 20)
 
 
 def run(
-    config: Dict, checkpoint: str, device="cuda", sequence_length: int = 20
+    config: Dict, checkpoint: str, device="cuda", sequence_length: int = 20,
+    attention: bool = False,
 ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """Simulate the test sequence and predict frames 1..T from frames
-    0..T-1 in one batched forward. Returns (sequence, outputs)."""
+    0..T-1 in one batched forward. Returns (sequence, outputs). With
+    `attention`, outputs also holds "attention_weights": layer 0's
+    attention probabilities [1, heads, 1024, 1024] on the first input
+    frame, from the einsum path (the flash kernel never forms them)."""
     model = load_model(config, checkpoint, device)
-    predict = make_predictor(model, chaos_seed=config["tpu"]["seed"])
+    seed = config["tpu"]["seed"]
+    predict = make_predictor(model, chaos_seed=seed)
     sequence = generate_test_sequence(make_simulator(config, device), sequence_length)
     inputs = torch.stack(sequence[:-1])[..., None]  # [T-1, H, W, 1]
-    return sequence, predict(inputs)
+    outputs = predict(inputs)
+    if attention:
+        with torch.inference_mode():
+            outputs["attention_weights"] = model.attention_weights(
+                inputs[:1], generator=torch.Generator().manual_seed(seed))
+    return sequence, outputs
 
 
 def save_figures(sequence, outputs, output_dir: str) -> None:
-    import matplotlib
+    """ground_truth.png, predictions.png, physics_features.png and
+    comparison.png, and attention_maps.png where `outputs` holds
+    "attention_weights", in `output_dir`."""
+    from .utils.visualization import SmokeVisualizer, pyplot
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    plt.style.use("dark_background")
     truth = [f.float().cpu().numpy() for f in sequence]
     preds = list(outputs["reconstructed"][..., 0].float().cpu().numpy())
     phys = outputs["physics_features"].float().cpu().numpy()
     os.makedirs(output_dir, exist_ok=True)
     out = lambda name: os.path.join(output_dir, name)
 
-    def grid(frames, path):
-        n = len(frames)
-        cols = min(8, n)
-        rows = -(-n // cols)
-        fig, axes = plt.subplots(rows, cols, figsize=(cols * 2, rows * 2), squeeze=False)
-        for i in range(rows * cols):
-            ax = axes[divmod(i, cols)]
-            if i < n:
-                ax.imshow(frames[i], cmap="hot", interpolation="bilinear")
-                ax.set_title(f"Frame {i}")
-            ax.axis("off")
-        plt.tight_layout()
-        plt.savefig(path, dpi=150, bbox_inches="tight")
-        plt.close(fig)
+    visualizer = SmokeVisualizer(figsize=(15, 10))
+    visualizer.plot_smoke_evolution(truth[1:], save_path=out("ground_truth.png"))
+    visualizer.plot_smoke_evolution(preds, save_path=out("predictions.png"))
+    visualizer.plot_chaos_features(
+        {"lyapunov_exponent": phys[:, 0].tolist(),
+         "fractal_dimension": phys[:, 1].tolist(),
+         "entropy": phys[:, 2].tolist()},
+        save_path=out("physics_features.png"))
+    if "attention_weights" in outputs:
+        visualizer.plot_attention_maps(outputs["attention_weights"], truth[0][None, ..., None],
+                                       save_path=out("attention_maps.png"))
 
-    grid(truth[1:], out("ground_truth.png"))
-    grid(preds, out("predictions.png"))
-
-    fig, axes = plt.subplots(1, 3, figsize=(15, 10))
-    for i, (ax, title) in enumerate(
-        zip(axes, ["Lyapunov Exponent", "Fractal Dimension", "Entropy"])
-    ):
-        ax.plot(phys[:, i], "o-", linewidth=2, markersize=4)
-        ax.set_title(title)
-        ax.set_xlabel("Time Step")
-        ax.grid(True, alpha=0.3)
-    plt.tight_layout()
-    plt.savefig(out("physics_features.png"), dpi=150, bbox_inches="tight")
-    plt.close(fig)
-
+    plt = pyplot()
     fig, axes = plt.subplots(2, 3, figsize=(18, 12))
     for i, idx in enumerate([0, len(preds) // 2, len(preds) - 1]):
         axes[0, i].imshow(truth[idx + 1], cmap="hot")
@@ -119,12 +112,12 @@ def main(argv=None) -> None:
     parser.add_argument("--output_dir", type=str, default=".")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--save_attention", action="store_true",
-                        help="not ported yet: refused")
+                        help="also write attention_maps.png: layer 0's attention "
+                             "on the first frame")
     args = parser.parse_args(argv)
-    if args.save_attention:
-        parser.error("--save_attention is not ported to the PyTorch package yet")
     config = load_config(args.config)
-    sequence, outputs = run(config, args.checkpoint, args.device)
+    sequence, outputs = run(config, args.checkpoint, args.device,
+                            attention=args.save_attention)
     save_figures(sequence, outputs, args.output_dir)
     print(f"Visualization results have been saved to {args.output_dir}")
 

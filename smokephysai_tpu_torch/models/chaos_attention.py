@@ -57,7 +57,13 @@ def chaos_fields(
     on `device`."""
     init = 0.1 * torch.randn(layers, batch, 3, generator=generator,
                              device=generator.device, dtype=torch.float32)
-    traj = lorenz_trajectory(init)
+    return tile_trajectory(lorenz_trajectory(init), seq_len, device)
+
+
+def tile_trajectory(traj: Tensor, seq_len: int, device="cuda") -> Tensor:
+    """[layers, B, seq_len, 3]: the [layers, B, 5, 3] Lorenz trajectories
+    tiled along the sequence on `device` (a host tensor goes to the card in
+    one copy from pinned memory that does not wait for queued work)."""
     device = torch.device(device)
     if traj.device.type == "cpu" and device.type == "cuda":
         traj = traj.pin_memory().to(device, non_blocking=True)
@@ -95,8 +101,12 @@ class ChaosAttention(nn.Module):
         self.chaos_gate = Linear(dim, 1, dtype)
         self.out_proj = Linear(dim, dim, dtype)
 
-    def forward(self, x: Tensor, field: Tensor) -> Tensor:
-        """`field` is this layer's chaos field [B, L, 3] (`chaos_field`)."""
+    def forward(self, x: Tensor, field: Tensor, return_attention: bool = False):
+        """`field` is this layer's chaos field [B, L, 3] (`chaos_field`).
+
+        `return_attention` returns (output, probabilities [B, h, L, L]) from
+        the einsum path, which it takes even when `use_flash` is set: the
+        flash kernel never forms the probability matrix."""
         B, L, D = x.shape
         h = self.num_heads
         hd = D // h
@@ -108,7 +118,7 @@ class ChaosAttention(nn.Module):
         gate = torch.sigmoid(self.chaos_gate(feats).to(acc)).to(self.dtype)
         q_eff = q + self.strength * gate * feats
 
-        if self.use_flash:
+        if self.use_flash and not return_attention:
             # the lean kernel when nothing needs a gradient (serving, eval),
             # the forward-with-logsumexp and backward kernels when training
             out = flash_attention_tokens_trainable(
@@ -122,4 +132,5 @@ class ChaosAttention(nn.Module):
         attn = torch.softmax(scores, dim=-1).to(self.dtype)
         out = torch.einsum("bhij,bhjd->bhid", attn.to(acc), split(v).to(acc))
         out = out.transpose(1, 2).reshape(B, L, D)
-        return self.out_proj(out).to(self.out_dtype)
+        out = self.out_proj(out).to(self.out_dtype)
+        return (out, attn) if return_attention else out

@@ -18,7 +18,7 @@ through the flash kernel (`ops/attention.py`). The JAX model's
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -162,6 +162,12 @@ class SmokePhysNet(nn.Module):
         """x: NHWC [B, H, W, 1]. The per-layer chaos fields come from
         `chaos_fields` when given, else from `generator`; in training mode
         the dropout masks come from `generator` after them."""
+        fields = self._fields(x, generator, chaos_fields)
+        feats = self.encode(x.permute(0, 3, 1, 2))
+        feats = self.trunk(feats, fields, generator)
+        return self.decode(feats, x.shape[1:3], return_features)
+
+    def _fields(self, x: Tensor, generator, chaos_fields) -> List[Tensor]:
         if chaos_fields is None:
             if generator is None:
                 raise ValueError("SmokePhysNet: pass a generator or chaos_fields")
@@ -169,7 +175,16 @@ class SmokePhysNet(nn.Module):
         if len(chaos_fields) != self.num_layers:
             raise ValueError(f"SmokePhysNet: {len(chaos_fields)} chaos fields "
                              f"for {self.num_layers} layers")
-        feats = self.encode(x.permute(0, 3, 1, 2))
-        feats = self.trunk(feats, [f.to(x.device, torch.float32) for f in chaos_fields],
-                           generator)
-        return self.decode(feats, x.shape[1:3], return_features)
+        return [f.to(x.device, torch.float32) for f in chaos_fields]
+
+    def attention_weights(self, x: Tensor, generator: torch.Generator | None = None,
+                          chaos_fields: Sequence[Tensor] | None = None) -> Tensor:
+        """Layer 0's attention probabilities [B, heads, 1024, 1024] for NHWC
+        `x`, from the einsum path, under the chaos field that `forward` gives
+        that layer from the same `generator` or `chaos_fields`."""
+        fields = self._fields(x, generator, chaos_fields)
+        layer = self.layer_0
+        feats = self.encode(x.permute(0, 3, 1, 2)).to(layer.res_dtype)
+        _, attn = layer.chaos_attention(layer.norm1(feats), fields[0],
+                                        return_attention=True)
+        return attn

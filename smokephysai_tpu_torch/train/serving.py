@@ -13,9 +13,10 @@ from typing import Callable, Dict
 
 import torch
 
+from ..models.chaos_attention import tile_trajectory
 from ..models.convert import jax_variables_to_state_dict, load_npz_variables
-from ..models.net import SmokePhysNet
-from ..models.net3d import SmokePhysNet3D
+from ..models.net import TOKEN_GRID, SmokePhysNet
+from ..models.net3d import TOKEN_GRID_3D, SmokePhysNet3D
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,19 +74,34 @@ def load_model(config: Dict, checkpoint_path: str,
 
 
 def make_predictor(
-    model: SmokePhysNet | SmokePhysNet3D, chaos_seed: int = 0
+    model: SmokePhysNet | SmokePhysNet3D, chaos_seed: int = 0,
+    chaos_traj: Dict[int, torch.Tensor] | None = None,
 ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """Batched eval forward: NHWC [B, H, W, 1] (NDHWC [B, D, H, W, 1] for
     the volumetric model) -> {reconstructed, physics_features,
     latent_features}. Every call draws its chaos fields from a generator
-    seeded with `chaos_seed`, so a call is deterministic."""
+    seeded with `chaos_seed`, so a call is deterministic.
+
+    `chaos_traj` maps a batch size to given per-layer Lorenz trajectories
+    [layers, B, 5, 3] (such as the JAX package's draws that
+    `scripts/write_gate_draws.py` records): a call at that batch size runs
+    under them, tiled along the tokens, and a call at any other batch size
+    is refused. `predict.differentiable` is the same forward outside
+    inference mode, for gradients with respect to the input."""
     model.eval()
+    tokens = TOKEN_GRID_3D ** 3 if isinstance(model, SmokePhysNet3D) else TOKEN_GRID ** 2
 
-    @torch.inference_mode()
-    def predict(x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        gen = torch.Generator().manual_seed(chaos_seed)
-        return model(x, generator=gen)
+    def forward(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if chaos_traj is None:
+            return model(x, generator=torch.Generator().manual_seed(chaos_seed))
+        traj = chaos_traj.get(x.shape[0])
+        if traj is None:
+            raise ValueError(f"no chaos trajectories for a batch of {x.shape[0]} "
+                             f"(given for {sorted(chaos_traj)})")
+        return model(x, chaos_fields=tile_trajectory(traj, tokens, x.device))
 
+    predict = torch.inference_mode()(forward)
+    predict.differentiable = forward
     return predict
 
 

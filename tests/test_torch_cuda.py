@@ -786,3 +786,35 @@ def test_flash_attention_head_major_refusals(cuda):
     with pytest.raises(RuntimeError, match="gradient"):
         qg = q.clone().requires_grad_()
         attn_ops.flash_attention(qg, q, q)
+
+
+def test_gate_batches_on_the_card_match_the_cpu_path(cuda):
+    """The 128^2 gate's path (config/config.yaml, the committed JAX draws,
+    smokephysnet_128_best.npz) on the card against the port's CPU path on the
+    same draws, batch by batch for the first three batches: the held-out
+    frames (the multi-step kernel against its plain version, 1e-5 as in
+    chip_smoke) and the float32 forward on them (outputs in [0, 1] and the
+    physics head, 1e-4; TF32 off on both)."""
+    import os
+
+    from smokephysai_tpu_torch import benchmark as bench
+    from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = load_config(os.path.join(root, "config", "config.yaml"))
+    samples = bench.read_samples(
+        os.path.join(root, "tests", "goldens", "gate_draws_128x128_n50_s0.npz"), config, 50)
+    torch.backends.cudnn.allow_tf32 = False
+    sides = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = load_model(config, os.path.join(root, "checkpoints",
+                                                "smokephysnet_128_best.npz"), dev)
+        predict = make_predictor(model, chaos_traj=samples["chaos_traj"])
+        batches = bench.held_out_batches(config, 50, samples, dev)()
+        sides[dev.type] = [(b, predict(b["input"])) for b, _ in zip(batches, range(3))]
+    for (gb, gout), (cb, cout) in zip(sides["cuda"], sides["cpu"]):
+        for key in ("input", "target"):
+            torch.testing.assert_close(gb[key].cpu(), cb[key], atol=1e-5, rtol=0)
+        for key in ("reconstructed", "physics_features"):
+            torch.testing.assert_close(gout[key].cpu(), cout[key], atol=1e-4, rtol=0)

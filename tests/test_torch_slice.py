@@ -1,9 +1,10 @@
 """The port's serving slice as a whole against the JAX package's, on the CPU.
 
-`python -m smokephysai_tpu_torch.inference` runs once on a small model (the
-serving config's bf16 + flash + fast_math options at two layers of width
-64) and a 64^2 grid: it simulates the 20-frame test sequence, predicts the
-19 next frames in one batched forward and hands them to the figure writer. The JAX
+`python -m smokephysai_tpu_torch.inference --save_attention` runs once on a
+small model (the serving config's bf16 + flash + fast_math options at two
+layers of width 64) and a 64^2 grid: it simulates the 20-frame test
+sequence, predicts the 19 next frames in one batched forward, takes layer
+0's attention on the first frame and hands them to the figure writer. The JAX
 side simulates with its fused Pallas step (interpret mode) and runs its
 model with the same weights. Both get the same chaos fields and the same
 fractal field, so what is compared is the port. The JAX model runs its
@@ -66,10 +67,11 @@ def slice_run(tmp_path_factory):
         mp.setattr(tsimulator, "fractal_field",
                    lambda shape, device="cpu": torch.from_numpy(fractal).to(device))
         mp.setattr(SmokePhysNet, "chaos_fields",
-                   lambda self, gen, batch, device: [torch.from_numpy(f) for f in fields])
+                   lambda self, gen, batch, device: [torch.from_numpy(f[:batch])
+                                                     for f in fields])
         mp.setattr(inference, "save_figures", capture)
         inference.main(["--config", cfg_path, "--checkpoint", npz,
-                        "--output_dir", out_dir, "--device", "cpu"])
+                        "--output_dir", out_dir, "--device", "cpu", "--save_attention"])
 
     # the JAX package's serving path on the same inputs
     jsim.reset()
@@ -106,7 +108,7 @@ def test_cli_writes_figures(slice_run, tmp_path):
     outputs = {k: v[:4] for k, v in cap["outputs"].items()}
     inference.save_figures(cap["sequence"][:5], outputs, str(tmp_path))
     for name in ("ground_truth.png", "predictions.png", "physics_features.png",
-                 "comparison.png"):
+                 "comparison.png", "attention_maps.png"):
         assert os.path.getsize(os.path.join(tmp_path, name)) > 0
 
 
@@ -129,6 +131,11 @@ def test_slice_forward_matches_jax(slice_run):
 
 
 def test_save_attention_is_refused(slice_run):
-    with pytest.raises(SystemExit):
-        inference.main(["--config", slice_run["cfg_path"], "--checkpoint",
-                        slice_run["npz"], "--device", "cpu", "--save_attention"])
+    """`--save_attention` was refused until the port's attention capture
+    existed; now the CLI (the fixture's run) hands layer 0's probabilities
+    on the first input frame to the figure writer: [1, heads, 1024, 1024],
+    bf16 rows summing to 1 within bf16 rounding of 1024 terms
+    (test_cli_writes_figures draws them into attention_maps.png)."""
+    attn = slice_run["captured"]["outputs"]["attention_weights"]
+    assert attn.shape == (1, SMALL["num_heads"], 1024, 1024)
+    np.testing.assert_allclose(attn.float().sum(-1).numpy(), 1.0, atol=1e-2)
