@@ -99,10 +99,11 @@ From the root of a checkout, with one CUDA card:
    backward pair), the model with
    `tpu.use_flash` (4 lean launches) and its input gradient (4 + 4
    launches of the training pair) against einsum; timings of the CG, the
-   3D step, one episode, the forward and the head_dim-32 kernels (the
-   backward's and the split pair's in turns with SDPA's backward; the CG
-   kernel's device time too), and the 3D step's device time by kernel
-   (torch.profiler);
+   3D step, one episode, the forward and the head_dim-32 kernels in bf16 at
+   B = 1 and 8 and in float32 at B = 1, the type the 3D model's paths
+   launch (the backward's and the split pair's in turns with SDPA's
+   backward; the CG kernel's device time too), and the 3D step's device
+   time by kernel (torch.profiler);
 10. gate phase: the quality path through the port's `benchmark` and
    `evaluate` entry points at full width: the 50-sample gate of
    `config/config.yaml` (float32 einsum) on `smokephysnet_128_best.npz` with
@@ -116,12 +117,40 @@ From the root of a checkout, with one CUDA card:
    0.000650; the five-section evaluation report of `config/config.yaml` at
    50 samples and 50 scenarios with the seconds and launches of each
    section, failing on a NaN or an infinity; its PGD section again under
-   `tpu.use_flash` (float32 flash kernels: 12 lean, 60 forward-with-
-   logsumexp and 60 backward launches); and the volumetric branches
+   `tpu.use_flash` at 10 samples (float32 flash kernels: 12 lean, 60
+   forward-with-logsumexp and 60 backward launches); and the volumetric branches
    at 2 volumes of 128^3 (the benchmark's model row and baselines, the
    report's physics_consistency and reconstruction; 24 CG launches each);
-11. prints the kernels' JSON line, the SASS counts, the nvidia-smi line and, last,
-   {"ok": true, "device": {...}}.
+   after the training phase, also the float32 einsum train step of
+   `config/config_twophase_f32.yaml` (batch 8, full width): the median of 5
+   steps after 2, with TF32 off and with cuDNN's TF32 on, and the peak memory;
+11. streaming phase: `config/config_streaming_1024.yaml` on
+   `checkpoints/smokephysnet_128_best.npz`, uncut (1024^2, batch 1, 30
+   frames) through `train/streaming.streaming_rollout`, in three variants:
+   the config (bf16 einsum), plus use_flash and fast_math, plus
+   fast_encoder. Each: 30 fused-step launches (the global mode), no Jacobi
+   or diffusion launch, 0 or 180 lean flash launches; the frames against a
+   loop of the plain step (bound FUSED_ATOL, bit-equality printed), the
+   physics features and one frame's reconstruction against the float32
+   einsum model on those frames (2e-2), and the mean token each frame's
+   physics head takes, read in the rollout (2e-2 of its largest |x|);
+   frames per second (median of three rollouts) and the busy share of one
+   traced frame of the rollout's step. Then the lean kernel
+   at [1, 1024, 512] against its plain version and SDPA, and the stream CLI
+   once (its three files checked);
+12. volumetric training phase: `python -m smokephysai_tpu_torch.train
+   --config config/config_128cubed.yaml` at full width cut to one epoch
+   (32 + 8 episodes generated with the CG kernel, 480 launches; 32 steps;
+   the validation pass) in a scratch directory, its last checkpoint served
+   back through `load_model`; the config's train step (float32 einsum,
+   batch 1) timed with its peak memory; one step with `tpu.use_flash` held
+   against the einsum step (loss and gradient norm) on the fused route (4
+   forward-with-logsumexp and 4 backward launches) and the split route (4
+   dq and 4 dk/dv launches);
+13. prints the kernels' JSON line (this slice's paths as entries of their
+   own: the fused step and the lean kernel on the stream, the CG kernel and
+   the head_dim-32 training kernels in volumetric training), the SASS
+   counts, the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
 fallback. Needs no network and no file outside the checkout.
@@ -224,6 +253,20 @@ PARITY_VORT_MSE, PARITY_VORT_CORR = 0.000650, 0.9963  # PARITY.md, 256^2 vortici
 VORT_GAP = 0.10  # a larger gap to PARITY's 256^2 figure is written up in PERF.md
 EVAL_PHYSICS_TESTS = 50
 GATE_VOLUMES = 2  # the volumetric branches at 2 volumes of 128^3
+# PGD under use_flash: one batch, so the same launches as at GATE_SAMPLES
+# (cut from 50 to keep the script near three minutes with the streaming and
+# volumetric training phases)
+FLASH_PGD_SAMPLES = 10
+
+# the streaming phase: config_streaming_1024.yaml uncut (1024^2, batch 1)
+STREAM_CONFIG = os.path.join(ROOT, "config", "config_streaming_1024.yaml")
+STREAM_FRAMES = 30  # bench.py's streaming measurement: 30 frames
+STREAM_RUNS = 3  # timed rollouts per variant after a first one
+# the volumetric training phase: config_128cubed.yaml at full width, one epoch
+VOL_TRAIN_EPISODES = 32 + 8  # the config's train + validation episodes, uncut
+TIMED_STEPS = 5  # train steps timed after WARM_STEPS (the f32 and 3D steps)
+WARM_STEPS = 2
+F32_CONFIG = os.path.join(ROOT, "config", "config_twophase_f32.yaml")
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
 BIG_GRID = 1024  # config_streaming_1024.yaml's grid: the fused step's global mode
@@ -341,10 +384,16 @@ def step_bytes(h, w):
     return 4 * ((h + 1) * w + h * (w + 1) + 2 * h * w)
 
 
+PROFILE_TRIES = 3  # traces with no device time taken before the script fails
+
+
 def profile(fn, runs, label, top=15):
     """Traces `runs` calls of fn and prints the device time per call of the
     kernels that take the most, by kernel and by the PyTorch op that
-    launched them, and the device's busy share of the traced window."""
+    launched them, and the device's busy share of the traced window, which
+    it returns. A trace in which the profiler recorded no device time
+    (CUPTI drops a trace now and then) is taken again, up to PROFILE_TRIES
+    traces in all; then the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -353,27 +402,31 @@ def profile(fn, runs, label, top=15):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
-        start.record()
-        for _ in range(runs):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
-    per_kernel = {}
-    n_events = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[evt.name] = (per_kernel.get(evt.name, 0.0)
-                                    + evt.time_range.elapsed_us() / 1e3)
-            n_events += 1
-    busy_ms = sum(per_kernel.values())
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           acc_events=True) as prof:
+            start.record()
+            for _ in range(runs):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        window_ms = start.elapsed_time(end)
+        per_kernel = {}
+        n_events = 0
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                per_kernel[evt.name] = (per_kernel.get(evt.name, 0.0)
+                                        + evt.time_range.elapsed_us() / 1e3)
+                n_events += 1
+        busy_ms = sum(per_kernel.values())
+        if busy_ms > 0.0:
+            break
+        say(f"trace {label}: trace {attempt} of {PROFILE_TRIES} recorded no device time")
+    else:
+        fail(f"trace {label}: the profiler recorded no device time in {PROFILE_TRIES} traces")
     say(f"trace {label}: {window_ms / runs:.3f} ms per call (CUDA events), "
         f"device kernel time {busy_ms / runs:.3f} ms per call, busy share "
         f"{busy_ms / window_ms:.3f}, {n_events // runs} device events per call")
-    if busy_ms == 0.0:
-        fail(f"trace {label}: the profiler recorded no device time")
     say(f"trace {label}: kernels by device time")
     for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
         say(f"  {ms / runs:9.4f} ms  {100 * ms / busy_ms:5.1f}%  {kname[:110]}")
@@ -385,6 +438,7 @@ def profile(fn, runs, label, top=15):
         ms = a.self_device_time_total / 1e3
         say(f"  {ms / runs:9.4f} ms  {100 * ms / busy_ms:5.1f}%  {a.key[:60]} "
             f"({a.count // runs} per call)")
+    return busy_ms / window_ms
 
 
 COUNTERS = {  # kernel: (module under smokephysai_tpu_torch.ops, its counter)
@@ -623,22 +677,26 @@ def sass_counts(library, mnemonics=("HGMMA", "UTMALDG")):
 
 
 def device_ms(fn, calls=20):
-    """Mean device time per call of the kernels `fn` launches (torch.profiler)."""
+    """Mean device time per call of the kernels `fn` launches (torch.profiler);
+    as in `profile`, a trace with no device time is taken again, up to
+    PROFILE_TRIES traces, before the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us == 0:
-        fail("the profiler recorded no device time")
-    return us / calls / 1e3
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3
+        say(f"device time: trace {attempt} of {PROFILE_TRIES} recorded no device time")
+    fail(f"the profiler recorded no device time in {PROFILE_TRIES} traces")
 
 
 def flash_rate(flops, ms, bound_ms):
@@ -1235,7 +1293,8 @@ def volumetric_phase(dev, name, trace):
     two 128^3 episodes generated through the 3D dataset (one CG solve per
     step), smokephysnet3d_128cubed.npz served on them through load_model and
     make_predictor (against the same model in float64), the flash kernels at
-    head_dim 32 and the model with use_flash, and their timings."""
+    head_dim 32 (bf16 and float32) and the model with use_flash, and their
+    timings."""
     import copy
 
     import numpy as np
@@ -1383,14 +1442,14 @@ def volumetric_phase(dev, name, trace):
     # ------------------------------------------------ head_dim 32 (C.3)
     width, heads = config["model"]["hidden_dim"], config["model"]["num_heads"]
     hd = width // heads
-    flash_errs = {}
+    flash_errs = {"bf16": {}, "f32": {}}  # the model paths run float32 (B = 1)
     for batch, dtype in ((1, torch.float32), (1, torch.bfloat16), (8, torch.bfloat16)):
         q, k, v, g = (torch.randn(batch, 512, width, generator=gen).to(dev, dtype)
                       for _ in range(4))
         tag = f"[{batch},512,{width}] {str(dtype)[6:]} head_dim {hd}"
+        errs = flash_errs["bf16" if dtype == torch.bfloat16 else "f32"]
         for kname, err in flash_check(attn_ops, q, k, v, g, heads, tag).items():
-            if dtype == torch.bfloat16:
-                flash_errs[kname] = max(flash_errs.get(kname, 0.0), err)
+            errs[kname] = max(errs.get(kname, 0.0), err)
     cfg_flash = copy.deepcopy(config)
     cfg_flash["tpu"]["use_flash"] = True
     model_fl = load_model(cfg_flash, VOL_CHECKPOINT, dev)
@@ -1463,23 +1522,30 @@ def volumetric_phase(dev, name, trace):
     profile(lambda: solver3d.step3d(state, dt, visc, use_pallas=True), 5,
             f"volumetric step {grid}", top=12 if trace else 6)
 
+    # the flash kernels at head_dim 32: bf16 at B = 1 and 8, and float32 at
+    # B = 1 (what the 3D model's paths launch: serving, the input gradient
+    # and the train step under use_flash), keyed (kname, batch) and
+    # (kname, "f32"); float32 bounds at the non-tensor float32 rate (the
+    # float32 kernels do not use the tensor cores)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for batch in (1, 8):
-        q, k, v, g = (torch.randn(batch, 512, width, generator=gen).to(dev, torch.bfloat16)
+    for batch, dtype in ((1, torch.bfloat16), (8, torch.bfloat16), (1, torch.float32)):
+        q, k, v, g = (torch.randn(batch, 512, width, generator=gen).to(dev, dtype)
                       for _ in range(4))
+        f32 = dtype == torch.float32
+        key, peak, tname = ("f32", F32_FLOPS, "f32") if f32 else (batch, BF16_FLOPS, "bf16")
         qh, kh, vh = (t_.view(batch, 512, heads, hd).transpose(1, 2).detach().requires_grad_()
                       for t_ in (q, k, v))
         gh = g.view(batch, 512, heads, hd).transpose(1, 2)
         o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
         fwd_flops = 4 * batch * heads * 512 * 512 * hd
-        io = 4 * batch * 512 * width * 2
+        io = 4 * batch * 512 * width * q.element_size()
         lean = (timed(lambda: attn_ops.flash_attention_tokens(q, k, v, heads)),
                 timed(lambda: attn_ops.flash_attention_tokens_reference(q, k, v, heads)),
-                *lower_bound(io, fwd_flops, BF16_FLOPS),
+                *lower_bound(io, fwd_flops, peak),
                 timed(lambda: sdpa(qh.detach(), kh.detach(), vh.detach())))
         fwd = (timed(lambda: attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)),
                timed(lambda: attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)),
-               *lower_bound(io + batch * heads * 512 * 4, fwd_flops, BF16_FLOPS),
+               *lower_bound(io + batch * heads * 512 * 4, fwd_flops, peak),
                timed(lambda: sdpa(qh, kh, vh)))
         oh = sdpa(qh, kh, vh)
         delta = attn_ops._delta(o, g, heads)
@@ -1492,25 +1558,31 @@ def volumetric_phase(dev, name, trace):
                timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
                    q, k, v, o, lse, g, heads), runs=5),
                *lower_bound(2 * io + batch * heads * 512 * 4,
-                            10 * batch * heads * 512 * 512 * hd, BF16_FLOPS),
+                            10 * batch * heads * 512 * 512 * hd, peak),
                turns["sdpa"])
         for kname, t_ in (("flash_attention_tokens", lean),
                           ("flash_attention_tokens_fwd_lse", fwd),
                           ("flash_attention_tokens_bwd", bwd)):
-            timings[(kname, batch)] = t_
-            say(f"time {kname} [{batch},512,{width}] bf16 head_dim {hd} on {name}: kernel "
+            timings[(kname, key)] = t_
+            say(f"time {kname} [{batch},512,{width}] {tname} head_dim {hd} on {name}: kernel "
                 f"{t_[0]:.4f} ms, plain {t_[1]:.4f} ms, SDPA {t_[4]:.4f} ms, bound "
                 f"{t_[2]:.6f} ms ({t_[3]})")
         # the split pair's kernels alone on one delta (q, k, v, dO, lse and
         # delta read once, the gradients written once)
-        for kname, products, outs in (("flash_attention_tokens_bwd_dq", 3, 1),
-                                      ("flash_attention_tokens_bwd_dkv", 4, 2)):
+        for kname, products, outs, ref in (
+                ("flash_attention_tokens_bwd_dq", 3, 1,
+                 attn_ops.flash_attention_tokens_bwd_dq_reference),
+                ("flash_attention_tokens_bwd_dkv", 4, 2,
+                 attn_ops.flash_attention_tokens_bwd_dkv_reference)):
             ms = turns[kname.rsplit("_", 1)[1]]
             kb = lower_bound((4 + outs) * io // 4 + 2 * batch * heads * 512 * 4,
-                             2 * products * batch * heads * 512 * 512 * hd, BF16_FLOPS)
-            say(f"time {kname} [{batch},512,{width}] bf16 head_dim {hd} on {name}: kernel "
-                f"{ms:.4f} ms (delta given), SDPA backward {turns['sdpa']:.4f} ms, bound "
-                f"{kb[0]:.6f} ms ({kb[1]}); medians of three rounds in turns")
+                             2 * products * batch * heads * 512 * 512 * hd, peak)
+            plain_ms = timed(lambda: ref(q, k, v, o, lse, g, heads), runs=5)
+            timings[(kname, key)] = (ms, plain_ms, *kb, turns["sdpa"])
+            say(f"time {kname} [{batch},512,{width}] {tname} head_dim {hd} on {name}: kernel "
+                f"{ms:.4f} ms (delta given), plain {plain_ms:.4f} ms, SDPA backward "
+                f"{turns['sdpa']:.4f} ms, bound {kb[0]:.6f} ms ({kb[1]}); medians of three "
+                f"rounds in turns")
         del q, k, v, g, qh, kh, vh, gh, o, lse, oh, delta
     del model, predict, ds, seqs
     return {"gen_counts": gen_counts, "flash_counts": {**flash_serve_counts, **{
@@ -1641,14 +1713,15 @@ def gate_phase(dev):
     sections.clear()
     mark["stage"] = None
     t = time.time()
-    flash_report = evaluate_cli.run_evaluation(flash_config, CHECKPOINT, GATE_SAMPLES,
+    flash_report = evaluate_cli.run_evaluation(flash_config, CHECKPOINT, FLASH_PGD_SAMPLES,
                                                sections={"adversarial"}, device=dev,
                                                progress=progress)
     layers = config["model"]["num_layers"]
     counts = sections["adversarial"][1]
-    say(f"evaluate adversarial under tpu.use_flash=true in {time.time() - t:.2f} s "
-        f"(PGD {sections['adversarial'][0]:.3f} s): {json.dumps(flash_report)} against "
-        f"einsum's {json.dumps(report['adversarial'])}; launches {counts}")
+    say(f"evaluate adversarial under tpu.use_flash=true, {FLASH_PGD_SAMPLES} samples, in "
+        f"{time.time() - t:.2f} s (PGD {sections['adversarial'][0]:.3f} s): "
+        f"{json.dumps(flash_report)} (einsum's at {GATE_SAMPLES} samples: "
+        f"{json.dumps(report['adversarial'])}); launches {counts}")
     pgd_steps = 10  # adversarial_test's default
     if counts != {"flash_attention_tokens": 2 * layers,
                   "flash_attention_tokens_fwd_lse": pgd_steps * layers,
@@ -1689,6 +1762,413 @@ def gate_phase(dev):
     results["volumetric"] = {"row": row, "baselines": cv, "report": vreport}
     say(f"gate phase: {time.time() - t_phase:.1f} s")
     return results
+
+
+def timed_train_steps(trainer, next_batch, label, name):
+    """The median of TIMED_STEPS train steps after WARM_STEPS (CUDA events)
+    and their peak memory, with TF32 off (this script's setting) and then
+    with cuDNN's TF32 on (PyTorch's default for convolutions); fails on a
+    kernel launch (the float32 einsum steps timed here launch none) or a
+    non-finite loss. Returns {tag: (median ms, peak GiB)}."""
+    import torch
+
+    result = {}
+    for tag, tf32 in (("no TF32", False), ("cuDNN TF32 (PyTorch's default)", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            for _ in range(WARM_STEPS):
+                trainer.train_step(next_batch())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            ms = []
+            for _ in range(TIMED_STEPS):
+                batch = next_batch()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                m = trainer.train_step(batch)
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+                if not math.isfinite(float(m["total_loss"])):
+                    fail(f"non-finite loss in the {label} train step")
+            counts = read_counts()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        expect_counts(f"{label} train step", counts)
+        result[tag] = (statistics.median(ms), torch.cuda.max_memory_allocated() / 2 ** 30)
+        say(f"time train step ({label}, {tag}) on {name}: median {result[tag][0]:.3f} ms of "
+            f"{TIMED_STEPS} after {WARM_STEPS} warm-up (CUDA events; "
+            f"{[round(x, 2) for x in ms]}), peak memory {result[tag][1]:.2f} GiB")
+    return result
+
+
+def f32_train_step(train_ds, dev, name):
+    """config_twophase_f32.yaml's train step (float32 einsum, batch 8, full
+    width) on the dataset phase's episodes, timed by `timed_train_steps`."""
+    import torch
+
+    from smokephysai_tpu_torch.train import loop
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    config = load_config(F32_CONFIG)
+    bs, seed = config["training"]["batch_size"], config["tpu"]["seed"]
+    model = loop.build_train_model(config, dev)
+    loop.init_parameters(model, torch.Generator(dev).manual_seed(seed))
+    trainer = loop.Trainer(model, config, len(train_ds) // bs,
+                           torch.Generator(dev).manual_seed(seed))
+    data_gen = torch.Generator().manual_seed(seed)
+
+    def batches():
+        while True:
+            yield from train_ds.epoch_batches(data_gen, bs, shuffle=True)
+
+    it = batches()
+    result = timed_train_steps(trainer, lambda: next(it),
+                               f"config_twophase_f32: float32 einsum, B={bs}, full width",
+                               name)
+    del trainer, model
+    return result
+
+
+def streaming_phase(dev, name, smi_line, trace):
+    """config_streaming_1024.yaml on smokephysnet_128_best.npz, uncut (1024^2,
+    batch 1, STREAM_FRAMES frames as bench.py measures them), in three
+    variants: the config (bf16 einsum), plus use_flash and fast_math, plus
+    fast_encoder as well. Each variant's rollout through
+    `train/streaming.streaming_rollout` is checked for its launches (one
+    fused step a frame in the global mode, no Jacobi or diffusion launch,
+    num_layers lean flash launches a frame under use_flash), its frames
+    against a loop of the plain step, and its features and the mean token
+    its physics head takes (and one frame's reconstruction) against the
+    same frames through a float32 einsum model; then frames per second, the
+    busy share of one traced frame of the rollout's step, the lean flash
+    kernel at the frame's shape, and the stream CLI once."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from smokephysai_tpu_torch import stream as stream_cli
+    from smokephysai_tpu_torch.models.convert import (
+        jax_variables_to_state_dict,
+        load_npz_variables,
+    )
+    from smokephysai_tpu_torch.ops import attention as attn_ops
+    from smokephysai_tpu_torch.ops import fused_step as step_ops
+    from smokephysai_tpu_torch.physics import solver
+    from smokephysai_tpu_torch.physics.fractal import (
+        apply_fractal_perturbation,
+        fractal_field,
+    )
+    from smokephysai_tpu_torch.physics.simulator import FRACTAL_INTENSITY
+    from smokephysai_tpu_torch.train.serving import build_model
+    from smokephysai_tpu_torch.train.streaming import make_streaming_step, streaming_rollout
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    config = load_config(STREAM_CONFIG)
+    sim, seed = config["simulation"], config["tpu"]["seed"]
+    grid = tuple(sim["grid_size"])
+    dt, visc, iters = sim["dt"], sim["viscosity"], sim["num_jacobi_iters"]
+    layers, width = config["model"]["num_layers"], config["model"]["hidden_dim"]
+    heads = config["model"]["num_heads"]
+    T = STREAM_FRAMES
+
+    def source_state():  # the stream CLI's source
+        s = solver.init_state(grid, device=dev)
+        return s.replace(density=solver.add_smoke_source(
+            s.density, grid[1] / 2, grid[0] / 2, max(8.0, grid[0] / 32), 1.5))
+
+    # the plain step's frames, and the float32 einsum model's features on them
+    fractal = fractal_field(grid, device=dev)
+    s, plain_frames = source_state(), []
+    for _ in range(T):
+        s = solver.SimState(*step_ops.fused_step_reference(
+            s.u, s.v, s.p, s.density, dt, visc, iters, 1))
+        plain_frames.append(apply_fractal_perturbation(s.density, FRACTAL_INTENSITY, fractal))
+    plain_frames = torch.stack(plain_frames)
+    plan = step_ops.launch_plan(1, *grid, 1, device=dev).describe()
+
+    weights = jax_variables_to_state_dict(load_npz_variables(CHECKPOINT))  # read once
+
+    def model_for(**tpu):  # what load_model gives for the config with `tpu` set
+        cfg = copy.deepcopy(config)
+        cfg["tpu"].update(tpu)
+        model = build_model(cfg, dev)
+        model.load_state_dict(weights, strict=True)
+        return model
+
+    refs = {}
+    for fast_encoder in (False, True):
+        m32 = model_for(compute_dtype="float32", use_flash=False, fast_math=False,
+                        fast_encoder=fast_encoder)
+        fields = m32.chaos_fields(torch.Generator().manual_seed(seed), 1, dev)
+        with torch.inference_mode():
+            outs32 = [m32(f[None, :, :, None], chaos_fields=fields) for f in plain_frames]
+            refs[fast_encoder] = (
+                torch.stack([o["physics_features"][0] for o in outs32]),
+                outs32[-1]["reconstructed"],
+                torch.stack([o["latent_features"][0] for o in outs32]))
+            del outs32
+        del m32
+
+    results = {}
+    for tag, opts in (("bf16 einsum", {}),
+                      ("+ use_flash, fast_math", {"use_flash": True, "fast_math": True}),
+                      ("+ fast_encoder", {"use_flash": True, "fast_math": True,
+                                          "fast_encoder": True})):
+        model = model_for(**opts)
+        # the mean token each frame's physics head takes (after the encoder
+        # and the trunk), read where the rollout hands it to phys1
+        pooled = []
+        hook = model.phys1.register_forward_hook(
+            lambda mod, args, out: pooled.append(args[0][0].float()))
+        reset_counts()
+        t = time.time()
+        final, outs = streaming_rollout(model, source_state(), T, dt, visc, iters,
+                                        use_pallas=True, chaos_seed=seed)
+        torch.cuda.synchronize()
+        first_s = time.time() - t
+        counts = read_counts()
+        hook.remove()
+        flash = opts.get("use_flash", False)
+        expect_counts(f"streaming ({tag})", counts, fused_step=T,
+                      flash_attention_tokens=layers * T if flash else 0)
+        frames, feats = outs["frame"], outs["physics_features"]
+        if tuple(frames.shape) != (T, *grid) or tuple(feats.shape) != (T, 3):
+            fail(f"streaming ({tag}): shapes {tuple(frames.shape)}, {tuple(feats.shape)}")
+        frame_err = maxerr(frames, plain_frames)
+        ref_feats, ref_recon, ref_pooled = refs[opts.get("fast_encoder", False)]
+        feat_err = maxerr(feats, ref_feats)
+        if len(pooled) != T:
+            fail(f"streaming ({tag}): the physics head ran {len(pooled)} times in {T} frames")
+        pooled = torch.stack(pooled)
+        pooled_err = maxerr(pooled, ref_pooled)
+        pooled_bound = RECON_BF16_VS_F32 * max(1.0, float(ref_pooled.abs().max()))
+        # one frame's whole forward (the decoder too) against float32
+        step = make_streaming_step(model, dt, visc, iters, use_pallas=True, chaos_seed=seed)
+        s_prev = source_state()
+        for f in range(T - 1):  # the state before the last frame, by the kernel
+            s_prev = solver.step(s_prev, dt, visc, iters, use_pallas=True)
+        _, one = step(s_prev)
+        recon_err = maxerr(one["reconstructed"], ref_recon[0, :, :, 0])
+        say(f"streaming {grid[0]}^2 ({tag}): {T} frames, launches {counts}; frames vs "
+            f"a loop of the plain step: max|d| {frame_err:.3e} (bound {FUSED_ATOL:g}, "
+            f"bit-equal {torch.equal(frames, plain_frames)}); physics features vs the "
+            f"float32 einsum model on the plain frames: max|d| {feat_err:.3e}, the last "
+            f"frame's reconstruction {recon_err:.3e} (bound {RECON_BF16_VS_F32:g}), the "
+            f"mean token into the physics head {pooled_err:.3e} (bound {pooled_bound:.3e}: "
+            f"{RECON_BF16_VS_F32:g} of the float32 token's largest |x|, at least 1; "
+            f"||d||/||ref|| {rel_norm(pooled, ref_pooled):.3e}); first rollout {first_s:.2f} "
+            f"s (host clock)")
+        if not (frame_err <= FUSED_ATOL and feat_err <= RECON_BF16_VS_F32
+                and recon_err <= RECON_BF16_VS_F32 and pooled_err <= pooled_bound
+                and torch.isfinite(feats).all()):
+            fail(f"streaming ({tag}) disagrees with the plain step or the float32 model")
+        walls = []
+        for _ in range(STREAM_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            streaming_rollout(model, source_state(), T, dt, visc, iters, use_pallas=True,
+                              chaos_seed=seed)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        fps = T / statistics.median(walls)
+        # one frame of the rollout's own per-frame step (streaming_rollout
+        # loops over it)
+        fstate = [final]
+        frame_step = make_streaming_step(model, dt, visc, iters, use_pallas=True,
+                                         chaos_seed=seed, return_reconstruction=False)
+
+        def one_frame():
+            fstate[0], _ = frame_step(fstate[0])
+
+        busy = profile(one_frame, 1, f"streaming frame {grid[0]}^2 ({tag})",
+                       top=12 if trace else 6)
+        results[tag] = {"fps": fps, "counts": counts, "frame_err": frame_err,
+                        "busy": busy, "walls": walls}
+        say(f"time streaming {grid[0]}^2 ({tag}) on {name} [{smi_line}]: {fps:.2f} frames "
+            f"per second (median of {STREAM_RUNS} rollouts of {T} frames, host clock to the "
+            f"card's completion: {[round(w * 1e3, 2) for w in walls]} ms); busy share of "
+            f"one traced frame {busy:.3f}; fused step plan {plan}")
+        del model, outs, frames, feats, final, fstate, step, frame_step, one, pooled
+
+    # the lean flash kernel at the streaming frame's shape [1, 1024, width]
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 1024, width, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    qh, kh, vh = (x.view(1, 1024, heads, width // heads).transpose(1, 2) for x in (q, k, v))
+    o = attn_ops.flash_attention_tokens(q, k, v, heads).float()
+    r = attn_ops.flash_attention_tokens_reference(q, k, v, heads).float()
+    lean_err = maxerr(o, r)
+    lean_bound = FLASH_BF16_ULPS * bf16_ulp(float(r.abs().max()))
+    if not lean_err <= lean_bound:
+        fail("flash_attention_tokens at [1,1024,width] disagrees with its plain version")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lean = (timed(lambda: attn_ops.flash_attention_tokens(q, k, v, heads)),
+            timed(lambda: attn_ops.flash_attention_tokens_reference(q, k, v, heads)),
+            *lower_bound(4 * 1024 * width * 2, 4 * heads * 1024 * 1024 * (width // heads),
+                         BF16_FLOPS),
+            timed(lambda: sdpa(qh, kh, vh)))
+    say(f"time flash_attention_tokens [1,1024,{width}] bf16 (the streaming frame) on {name}: "
+        f"kernel {lean[0]:.4f} ms, plain {lean[1]:.4f} ms, SDPA {lean[4]:.4f} ms, bound "
+        f"{lean[2]:.6f} ms ({lean[3]}); max|d| {lean_err:.3e} (bound {lean_bound:.3e})")
+    del q, k, v, qh, kh, vh, o, r
+
+    # the stream CLI once
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        summary = stream_cli.main(["--config", STREAM_CONFIG, "--checkpoint", CHECKPOINT,
+                                   "--frames", str(T), "--output_dir", tmp])
+        torch.cuda.synchronize()
+        cli_counts = read_counts()
+        feats = np.load(os.path.join(tmp, "physics_features.npy"))
+        frames = np.load(os.path.join(tmp, "frames.npy"))
+        with open(os.path.join(tmp, "summary.json")) as f:
+            written = json.load(f)
+    ds = grid[0] // 4
+    ok = (feats.shape == (T, 3) and frames.shape == (T, ds, ds) and written == summary
+          and np.isfinite(feats).all() and np.isfinite(frames).all()
+          and np.array_equal(frames, plain_frames[:, ::4, ::4].cpu().numpy()))
+    say(f"stream CLI: {T} frames at {grid[0]}^2: physics_features.npy {feats.shape}, "
+        f"frames.npy {frames.shape} (the plain step's frames {ok}), summary.json {written}; "
+        f"launches {cli_counts}")
+    expect_counts("stream CLI", cli_counts, fused_step=T)
+    if not ok:
+        fail("the stream CLI's files are wrong")
+    say(f"streaming phase: {time.time() - t_phase:.1f} s")
+    return {"results": results, "lean": lean, "lean_err": lean_err,
+            "frame_err": max(r_["frame_err"] for r_ in results.values())}
+
+
+def volumetric_training_phase(dev, name):
+    """`python -m smokephysai_tpu_torch.train --config config_128cubed.yaml`
+    at full width cut to one epoch (its 32 + 8 episodes generated with the
+    CG kernel, 32 steps at batch 1, the validation pass) in a scratch
+    directory, its checkpoint served back through `load_model`; then, on a
+    generated episode, the config's train step timed (and its peak memory)
+    and traced, and one step with use_flash held against the einsum step on
+    the fused and the split backward routes."""
+    import contextlib
+    import copy
+    import tempfile
+
+    import torch
+
+    from smokephysai_tpu_torch.data.synthetic3d import SyntheticSmokeDataset3D
+    from smokephysai_tpu_torch.train import loop
+    from smokephysai_tpu_torch.train.__main__ import main as train_main
+    from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    config = load_config(VOL_CONFIG)
+    grid, T = tuple(config["data"]["grid_size"]), config["data"]["sequence_length"]
+    seed, layers = config["tpu"]["seed"], config["model"]["num_layers"]
+    if config["data"]["num_train"] + config["data"]["num_val"] != VOL_TRAIN_EPISODES:
+        fail("config_128cubed.yaml no longer has 32 + 8 episodes")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.time()
+            exp_dir = os.path.join(tmp, train_main(
+                ["--config", VOL_CONFIG, "--set", "training.num_epochs=1"]))
+            torch.cuda.synchronize()
+            cli_s = time.time() - t
+            counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"volumetric training CLI: one epoch of config_128cubed.yaml ({VOL_TRAIN_EPISODES} "
+            f"episodes at {grid}, T={T}, generated; {config['data']['num_train']} steps at "
+            f"batch {config['training']['batch_size']}; the validation pass) in {cli_s:.1f} s "
+            f"(host clock, generation and checkpoints included), peak memory {peak:.2f} GiB; "
+            f"launches {counts}")
+        expect_counts("volumetric training CLI", counts, cg_pressure=VOL_TRAIN_EPISODES * T)
+        payload = torch.load(os.path.join(exp_dir, "last_model.pt"), map_location=dev,
+                             weights_only=False)
+        served = load_model(config, os.path.join(exp_dir, "last_model.npz"), dev)
+    same = all(torch.equal(v, payload["model"][k]) for k, v in served.state_dict().items())
+    if payload["step"] != config["data"]["num_train"] or not same:
+        fail(f"the volumetric checkpoint does not serve back (step {payload['step']}, "
+             f"weights equal {same})")
+    del payload
+
+    ds = SyntheticSmokeDataset3D(num_samples=1, grid_size=grid, sequence_length=T,
+                                 seed=seed + 2, use_pallas=True, device=dev)
+    batch = ds.get_batch(torch.tensor([0]), torch.tensor([T // 2]))
+    reset_counts()
+    out = make_predictor(served, chaos_seed=seed)(batch["input"])
+    torch.cuda.synchronize()
+    serve_counts = read_counts()
+    finite = bool(torch.isfinite(out["reconstructed"]).all()
+                  and torch.isfinite(out["physics_features"]).all())
+    mse = float(((out["reconstructed"] - batch["target"]) ** 2).mean())
+    say(f"volumetric training: last_model.npz served through load_model: weights equal "
+        f"{same}, outputs finite {finite}, next-volume MSE {mse:.6e} after one epoch; "
+        f"launches {serve_counts}")
+    expect_counts("serving the trained volumetric checkpoint", serve_counts)
+    if not finite:
+        fail("the trained volumetric model gives non-finite outputs")
+    del served, out
+
+    # the config's step (float32 einsum), timed with its peak memory, and traced
+    model = loop.init_parameters(loop.build_train_model(config, dev),
+                                 torch.Generator(dev).manual_seed(seed))
+    trainer = loop.Trainer(model, config, config["data"]["num_train"],
+                           torch.Generator(dev).manual_seed(seed))
+    steps = timed_train_steps(
+        trainer, lambda: batch, f"config_128cubed: SmokePhysNet3D float32 einsum, B=1, "
+        f"hidden {config['model']['hidden_dim']}, {layers} layers", name)
+    busy = profile(lambda: trainer.train_step(batch), 1, "volumetric train step B=1",
+                   top=8)
+
+    # one step with use_flash (float32 kernels, head_dim 32) against einsum,
+    # on the fused and the split backward routes
+    state = copy.deepcopy(model.state_dict())
+    fields = model.chaos_fields(torch.Generator(dev).manual_seed(7), 1, dev)
+    runs = {}
+    for mode in ("einsum", "flash", "flash, split backward"):
+        cfg = copy.deepcopy(config)
+        cfg["tpu"]["use_flash"] = mode != "einsum"
+        twin = loop.build_train_model(cfg, dev)
+        twin.load_state_dict(state)
+        tw = loop.Trainer(twin, cfg, config["data"]["num_train"],
+                          torch.Generator(dev).manual_seed(1))
+        tw.step = trainer.step
+        reset_counts()
+        with split_backward() if "split" in mode else contextlib.nullcontext():
+            m = tw.train_step(batch, chaos_fields=fields)
+        torch.cuda.synchronize()
+        runs[mode] = (float(m["total_loss"]), float(m["grad_norm"]), read_counts())
+        del twin, tw
+    el, en, ec = runs["einsum"]
+    expect_counts("volumetric train step, einsum", ec)
+    expect_counts("volumetric train step, flash", runs["flash"][2],
+                  flash_attention_tokens_fwd_lse=layers, flash_attention_tokens_bwd=layers)
+    expect_counts("volumetric train step, flash, split backward",
+                  runs["flash, split backward"][2], flash_attention_tokens_fwd_lse=layers,
+                  flash_attention_tokens_bwd_dq=layers, flash_attention_tokens_bwd_dkv=layers)
+    ok = True
+    for mode in ("flash", "flash, split backward"):
+        fl, fn, fc = runs[mode]
+        loss_rel, norm_rel = abs(fl - el) / abs(el), abs(fn - en) / abs(en)
+        say(f"volumetric train step, {mode} vs einsum (float32): loss {fl:.6f} vs {el:.6f} "
+            f"(rel {loss_rel:.3e}, bound {TRAIN_LOSS_RTOL:g}), gradient norm {fn:.5f} vs "
+            f"{en:.5f} (rel {norm_rel:.3e}, bound {TRAIN_GRAD_NORM_RTOL:g}); launches {fc}")
+        ok &= loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_GRAD_NORM_RTOL
+    if not ok:
+        fail("the volumetric train step with use_flash disagrees with einsum")
+    say(f"volumetric training phase: {time.time() - t_phase:.1f} s")
+    del trainer, model, ds, batch
+    return {"cli_counts": counts, "steps": steps, "busy": busy,
+            "flash_counts": runs["flash"][2], "split_counts": runs["flash, split backward"][2],
+            "cli_s": cli_s}
 
 
 def main():
@@ -2035,6 +2515,7 @@ def main():
     # ---------------------------------------------------------------- training
     trainer, train_batches, train_info = training_phase(
         train_config, train_ds, val_ds, dev)
+    f32_train_step(train_ds, dev, name)
 
     # ---------------------------------------------------------------- timing
     def step_bound(episodes):
@@ -2063,6 +2544,7 @@ def main():
     plain_ms = timed(lambda: step_ops.fused_step_reference(*big, dt, visc, iters, 1), runs=5)
     bound, by = lower_bound(2 * step_bytes(BIG_GRID, BIG_GRID),
                             step_flops(BIG_GRID, BIG_GRID, iters), F32_FLOPS)
+    timings[("fused_step", BIG_GRID)] = (ms, plain_ms, bound, by)
     say(f"time fused_step {BIG_GRID}^2 x1 on {name}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); plan: "
         f"{step_ops.launch_plan(1, BIG_GRID, BIG_GRID, 1, device=dev).describe()}")
@@ -2243,6 +2725,12 @@ def main():
     # ---------------------------------------------------------------- quality gate
     gate_phase(dev)
 
+    # ---------------------------------------------------------------- streaming
+    stream = streaming_phase(dev, name, smi_line, trace)
+
+    # ---------------------------------------------------------------- volumetric training
+    vtrain = volumetric_training_phase(dev, name)
+
     # ---------------------------------------------------------------- report
     fs = timings[("fused_step", 1)]
     fl = timings[("flash_attention_tokens", serve_batch)]
@@ -2359,17 +2847,80 @@ def main():
             ("flash_attention_tokens", "flash_tokens.cu", 521),
             ("flash_attention_tokens_fwd_lse", "flash_tokens.cu", 315),
             ("flash_attention_tokens_bwd", "flash_bwd.cu", 366)):
-        t_ = vol["timings"][(kname, 1)]
+        t_ = vol["timings"][(kname, "f32")]
         kernels.append({
             "name": f"{kname}[head_dim={hd}]",
             "route": "cuda",
             "source": f"smokephysai_tpu_torch/csrc/{source}",
             "replaces": f"smokephysai_tpu/ops/pallas/attention.py:{line}",
             "launches": vol["flash_counts"][kname],
-            "max_abs_err": vol["flash_errs"][kname],
+            "max_abs_err": vol["flash_errs"]["f32"][kname],
             "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
             "library_ms": t_[4],
-            "shape": f"[1,512,{vw}] bf16, {vh} heads of {hd} (the volumetric trunk)",
+            "shape": f"[1,512,{vw}] f32, {vh} heads of {hd} (the volumetric trunk's "
+                     f"serving forward and input gradient under use_flash)",
+        })
+    # this slice's paths: streaming at 1024^2 and volumetric training
+    t_ = timings[("fused_step", BIG_GRID)]
+    first = stream["results"]["bf16 einsum"]["counts"]
+    flash_run = stream["results"]["+ use_flash, fast_math"]["counts"]
+    kernels.append({
+        "name": f"fused_step[streaming {BIG_GRID}^2]",
+        "route": "cuda",
+        "source": "smokephysai_tpu_torch/csrc/fused_step.cu",
+        "replaces": "smokephysai_tpu/ops/pallas/fused_step.py:239",
+        "launches": first["fused_step"],
+        "max_abs_err": max(stream["frame_err"], err_big),
+        "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+        "library_ms": None,
+        "shape": (f"u({BIG_GRID + 1},{BIG_GRID}) v({BIG_GRID},{BIG_GRID + 1}) "
+                  f"p,d({BIG_GRID},{BIG_GRID}) f32, 1 episode (global mode), one a frame "
+                  f"of {STREAM_FRAMES}"),
+    })
+    t_ = stream["lean"]
+    kernels.append({
+        "name": "flash_attention_tokens[streaming]",
+        "route": "cuda",
+        "source": "smokephysai_tpu_torch/csrc/flash_tokens.cu",
+        "replaces": "smokephysai_tpu/ops/pallas/attention.py:521",
+        "launches": flash_run["flash_attention_tokens"],
+        "max_abs_err": stream["lean_err"],
+        "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+        "library_ms": t_[4],
+        "shape": f"[1,1024,{width}] bf16, {heads} heads of 64, "
+                 f"{flash_run['flash_attention_tokens'] // STREAM_FRAMES} a frame under use_flash",
+    })
+    t_ = vol["timings"]["cg_pressure"]
+    kernels.append({
+        "name": "cg_pressure[volumetric training]",
+        "route": "cuda",
+        "source": "smokephysai_tpu_torch/csrc/cg3d.cu",
+        "replaces": "smokephysai_tpu/ops/pallas/cg3d.py:86",
+        "launches": vtrain["cli_counts"]["cg_pressure"],
+        "max_abs_err": vol["cg_err"],
+        "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+        "library_ms": None,
+        "shape": f"p0, div [1,128,128,128] f32, 30 iterations, 12 a generated episode of "
+                 f"{VOL_TRAIN_EPISODES}",
+    })
+    for kname, source, line, counts_ in (
+            ("flash_attention_tokens_fwd_lse", "flash_tokens.cu", 315, vtrain["flash_counts"]),
+            ("flash_attention_tokens_bwd", "flash_bwd.cu", 366, vtrain["flash_counts"]),
+            ("flash_attention_tokens_bwd_dq", "flash_bwd.cu", 436, vtrain["split_counts"]),
+            ("flash_attention_tokens_bwd_dkv", "flash_bwd.cu", 449, vtrain["split_counts"])):
+        t_ = vol["timings"][(kname, "f32")]
+        kernels.append({
+            "name": f"{kname}[head_dim={hd}, volumetric train step]",
+            "route": "cuda",
+            "source": f"smokephysai_tpu_torch/csrc/{source}",
+            "replaces": f"smokephysai_tpu/ops/pallas/attention.py:{line}",
+            "launches": counts_[kname],
+            "max_abs_err": vol["flash_errs"]["f32"][kname],
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": t_[4],
+            "shape": f"[1,512,{vw}] f32, {vh} heads of {hd} (the train step under "
+                     f"tpu.use_flash" + (", SMOKEPHYS_FUSED_BWD=0)" if "_d" in kname[-4:]
+                                         else ")"),
         })
     say(f"wall: {time.time() - T0:.1f} s")
     say(json.dumps({"kernels": kernels}))

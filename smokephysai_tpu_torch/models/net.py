@@ -13,8 +13,11 @@ names, so `models/convert.py` maps the JAX variables one to one. NHWC
 Options as in the JAX model: `dtype` is the compute type of the dense and
 conv layers (bfloat16 for serving); `fast_math` keeps the trunk's residual
 stream in `dtype` and uses the tanh GELU; `use_flash` routes attention
-through the flash kernel (`ops/attention.py`). The JAX model's
-`fast_encoder` (streaming) is not ported.
+through the flash kernel (`ops/attention.py`); `fast_encoder` pools a
+frame larger than `input_dim`^2 down to `input_dim`^2 before the conv
+encoder (the streaming fast path; the JAX model's documented divergence,
+an exact no-op on `input_dim`^2 frames), where the parity path pools after
+`enc_conv2`.
 """
 from __future__ import annotations
 
@@ -78,9 +81,10 @@ class SmokePhysNet(nn.Module):
                  num_layers: int = 6, num_heads: int = 8,
                  output_channels: int = 64, chaos_strength: float = 0.1,
                  dtype=torch.float32, fast_math: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, fast_encoder: bool = False):
         super().__init__()
         self.input_dim, self.hidden_dim = input_dim, hidden_dim
+        self.fast_encoder = fast_encoder
         self.num_layers, self.output_channels = num_layers, output_channels
         self.dtype = dtype
         self.enc_conv1 = Conv(1, 64, 7, padding=3, dtype=dtype)
@@ -110,6 +114,8 @@ class SmokePhysNet(nn.Module):
 
     def encode(self, x: Tensor) -> Tensor:
         """NCHW frames -> token features [B, 1024, hidden_dim] (float32)."""
+        if self.fast_encoder and max(x.shape[-2:]) > self.input_dim:
+            x = adaptive_avg_pool2d(x, (self.input_dim, self.input_dim))
         h = F.relu(self.enc_bn1(self.enc_conv1(x)))
         h = F.relu(self.enc_bn2(self.enc_conv2(h)))
         h = adaptive_avg_pool2d(h, (self.input_dim, self.input_dim))
@@ -140,8 +146,7 @@ class SmokePhysNet(nn.Module):
         recon = torch.sigmoid(self.recon_out(img))
         if tuple(recon.shape[-2:]) != tuple(in_hw):
             recon = interpolate_bilinear(recon, tuple(in_hw))
-        pooled = feats.mean(dim=1)
-        phys = self.phys2(F.relu(self.phys1(pooled)))
+        phys, pooled = self.physics(feats)
         results = {
             "reconstructed": recon.permute(0, 2, 3, 1),
             "physics_features": phys,
@@ -150,6 +155,12 @@ class SmokePhysNet(nn.Module):
         if return_features:
             results["intermediate_features"] = feats
         return results
+
+    def physics(self, feats: Tensor):
+        """The physics head on the trunk's token features: ([B, 3] physics
+        features, [B, hidden_dim] mean token)."""
+        pooled = feats.mean(dim=1)
+        return self.phys2(F.relu(self.phys1(pooled))), pooled
 
     def chaos_fields(self, generator: torch.Generator, batch: int, device):
         """[num_layers, B, 1024, 3]: one chaos field per layer."""

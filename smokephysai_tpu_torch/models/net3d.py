@@ -7,7 +7,10 @@ encoder -> mean-pool to an 8^3 = 512-token grid -> the 2D model's
 stride-2 transposed convs back to 64^3 -> `recon_out` and a sigmoid ->
 `jax.image.resize`'s trilinear resize to the input volume; the physics
 heads read the mean token. NDHWC [B, D, H, W, 1] in and out of `forward`,
-NCDHW inside.
+NCDHW inside. `self.training` plays the JAX model's `train` flag, as in the
+2D model: the five BatchNorms take batch statistics over (N, D, H, W) and
+update their running ones, and the transformer layers apply their dropout
+with masks from the generator passed to `forward`.
 
 `dtype` is the compute type of the encoder convs, the transposed convs and
 the trunk; `feature_proj`, `dec`, `recon_out` and the physics heads compute
@@ -88,9 +91,8 @@ class SmokePhysNet3D(nn.Module):
                 return_features: bool = False) -> Dict:
         """x: NDHWC [B, D, H, W, 1] (D, H, W multiples of 8). The per-layer
         chaos fields come from `chaos_fields` when given, else from
-        `generator`."""
-        if self.training:
-            raise NotImplementedError("SmokePhysNet3D: training is not ported")
+        `generator`; in training mode the dropout masks come from
+        `generator` after them."""
         if chaos_fields is None:
             if generator is None:
                 raise ValueError("SmokePhysNet3D: pass a generator or chaos_fields")
@@ -106,7 +108,7 @@ class SmokePhysNet3D(nn.Module):
         tokens = avg_pool_to(h, g).flatten(2).transpose(1, 2)  # [B, 512, 64]
         feats = self.feature_proj(tokens) + self.pos_embedding.to(acc)
         for layer, field in zip(self.layers, chaos_fields):
-            feats = layer(feats, field.to(x.device, acc))
+            feats = layer(feats, field.to(x.device, acc), generator)
         feats = feats.to(acc)
 
         out = self.dec(F.relu(feats))

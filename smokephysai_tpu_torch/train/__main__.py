@@ -5,9 +5,11 @@
         [--resume EXP_DIR|CKPT.pt|auto] [--device cpu]
 
 Same flow as the root `train.py`: read the YAML config (with overrides),
-generate or load the cached train and validation datasets, train with
+generate or load the cached train and validation datasets (volume episodes
+for a 3-element `data.grid_size`, which trains SmokePhysNet3D), train with
 `train/loop.fit` into experiments/smokephys_<timestamp>/ (best_model.pt and
-.npz on each better validation loss, last_model.pt and .npz at the end).
+.npz on each better validation loss, last_model.pt and .npz at the end,
+TensorBoard scalars under logs/ where tensorboard is installed).
 The .npz files are flat exports that `train/serving.load_model` serves.
 `--resume auto` resumes the newest experiment that holds a best model (a
 fresh run when there is none).
@@ -22,6 +24,7 @@ from datetime import datetime
 import torch
 
 from ..data.synthetic import create_data_loaders
+from ..data.synthetic3d import create_data_loaders3d
 from ..utils.config import apply_overrides, load_config
 from .checkpoint import latest_checkpoint
 from .loop import fit
@@ -47,8 +50,6 @@ def main(argv=None) -> str:
     if args.resume == "auto":
         args.resume = latest_checkpoint()
         print(f"Auto-resume from: {args.resume}")
-    if len(config["data"]["grid_size"]) == 3:
-        raise NotImplementedError("the volumetric training path is not ported")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass --device cpu to train on the CPU")
@@ -57,9 +58,15 @@ def main(argv=None) -> str:
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     exp_dir = os.path.join("experiments", f"smokephys_{timestamp}")
     os.makedirs(exp_dir, exist_ok=True)
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer = SummaryWriter(os.path.join(exp_dir, "logs"))
+    except ImportError:  # tensorboard is optional
+        writer = None
 
     data, tpu = config["data"], config["tpu"]
-    train_ds, val_ds = create_data_loaders(
+    common = dict(
         batch_size=config["training"]["batch_size"],
         num_train=data["num_train"],
         num_val=data["num_val"],
@@ -68,11 +75,18 @@ def main(argv=None) -> str:
         sequence_length=data["sequence_length"],
         seed=tpu["seed"],
         use_pallas=tpu["use_pallas"],
-        vorticity_eps=tpu["vorticity_eps"],
         device=device,
     )
-    fit(config, train_ds, val_ds, exp_dir, resume_from=args.resume,
-        init_from=args.init_from, device=device)
+    if len(data["grid_size"]) == 3:
+        train_ds, val_ds = create_data_loaders3d(**common)
+    else:
+        train_ds, val_ds = create_data_loaders(vorticity_eps=tpu["vorticity_eps"], **common)
+    try:
+        fit(config, train_ds, val_ds, exp_dir, writer=writer, resume_from=args.resume,
+            init_from=args.init_from, device=device)
+    finally:
+        if writer is not None:
+            writer.close()
     print(f"Training completed! Checkpoints in {exp_dir}")
     return exp_dir
 

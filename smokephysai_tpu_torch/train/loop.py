@@ -4,9 +4,12 @@ Counterpart of the JAX package's `train/loop.py`, as a plain PyTorch loop:
 loss = recon MSE + 0.1 chaos MSE + 0.05 physics, global-norm clipping at
 1.0 then AdamW(lr, weight_decay) with the per-epoch cosine schedule, the
 optional input noise (`training.noise_std`) and parameter EMA
-(`training.ema_decay`), best-val and last checkpoints, `init_from` and a
-resume that restores everything. The JAX package's fused, staged and
-prefetched epoch programs are TPU dispatch workarounds and are not ported.
+(`training.ema_decay`), best-val and last checkpoints, `init_from`, a
+resume that restores everything, and the JAX trainer's TensorBoard
+scalars through an optional `writer`. A 3-element `data.grid_size` trains
+the volumetric SmokePhysNet3D through the same loop. The JAX package's
+fused, staged and prefetched epoch programs are TPU dispatch workarounds
+and are not ported.
 
 Random streams: one `torch.Generator` seeded with `tpu.seed` on the
 training device draws the initial weights and then every step's chaos
@@ -25,8 +28,17 @@ import torch
 from torch.func import functional_call
 
 from ..models.convert import jax_variables_to_state_dict, load_npz_variables
-from ..models.layers import BatchNorm, Conv, ConvTranspose2x, LayerNorm, Linear
+from ..models.layers import (
+    BatchNorm,
+    Conv,
+    Conv3D,
+    ConvTranspose2x,
+    ConvTranspose3D2x,
+    LayerNorm,
+    Linear,
+)
 from ..models.net import SmokePhysNet
+from ..models.net3d import SmokePhysNet3D
 from ..models.regularizer import physics_losses
 from .checkpoint import LAST_NAME, restore_checkpoint, save_checkpoint
 from .serving import build_model
@@ -38,6 +50,14 @@ PHYSICS_LOSS_WEIGHT = 0.05
 GRAD_CLIP_NORM = 1.0
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
+# fit's per-batch TensorBoard scalars: (tag, metric), as the JAX trainer's
+BATCH_SCALARS = (("Train/Batch_Total_Loss", "total_loss"),
+                 ("Train/Batch_Recon_Loss", "recon_loss"),
+                 ("Train/Batch_Physics_Loss", "physics_loss"),
+                 ("Train/Batch_Chaos_Loss", "chaos_loss"))
+# the standard deviation of a unit normal truncated to [-2, 2]
+# (jax.nn.initializers.variance_scaling's truncated_normal)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def cosine_epoch_schedule(
@@ -56,25 +76,45 @@ def cosine_epoch_schedule(
     return schedule
 
 
-def init_parameters(model: SmokePhysNet, generator: torch.Generator) -> SmokePhysNet:
-    """Initial weights as the JAX package's layers draw them (torch's
-    defaults): kernels and biases uniform in +-1/sqrt(fan_in) (fan_in of a
-    transposed conv = C_out * 16), norm scales 1 and shifts 0, running
-    statistics 0 and 1, the positional embedding N(0, 1)."""
+def init_parameters(model: SmokePhysNet | SmokePhysNet3D,
+                    generator: torch.Generator) -> SmokePhysNet | SmokePhysNet3D:
+    """Initial weights as the JAX package's layers draw them. Kernels and
+    biases of the torch-style layers (all of the 2D model's, and the 3D
+    model's convs, transposed convs and trunk) uniform in +-1/sqrt(fan_in)
+    (fan_in of a transposed conv = C_out * 16 in 2D, C_out * 64 in 3D); the
+    3D model's flax `nn.Dense` layers as flax draws them: `feature_proj` a
+    uniform kernel and a zero bias, `dec`, `phys1` and `phys2` a
+    lecun-normal kernel (normal truncated at two standard deviations, of
+    variance 1 / fan_in) and a zero bias. Norm scales 1 and shifts 0,
+    running statistics 0 and 1, the positional embedding N(0, 1)."""
     dev = generator.device
 
     def uniform_(t: Tensor, fan_in: int):
         bound = fan_in ** -0.5
         t.copy_(torch.rand(t.shape, generator=generator, device=dev) * (2 * bound) - bound)
 
+    def lecun_normal_(t: Tensor, fan_in: int):
+        # jax.random.truncated_normal(-2, 2) by the inverse CDF, scaled so
+        # that the truncated distribution's variance is 1 / fan_in
+        lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+        u = torch.rand(t.shape, generator=generator, device=dev) * (hi - lo) + lo
+        std = fan_in ** -0.5 / TRUNCATED_NORMAL_STD
+        t.copy_(math.sqrt(2.0) * torch.erfinv(u) * std)
+
+    flax_dense = ({"feature_proj", "dec", "phys1", "phys2"}
+                  if isinstance(model, SmokePhysNet3D) else set())
     with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (Linear, Conv)):
+        for name, mod in model.named_modules():
+            if isinstance(mod, (Linear, Conv, Conv3D)):
                 fan_in = mod.weight[0].numel()
-                uniform_(mod.weight, fan_in)
-                uniform_(mod.bias, fan_in)
-            elif isinstance(mod, ConvTranspose2x):
-                fan_in = mod.weight.shape[1] * 16
+                if name in flax_dense:
+                    (uniform_ if name == "feature_proj" else lecun_normal_)(mod.weight, fan_in)
+                    mod.bias.zero_()
+                else:
+                    uniform_(mod.weight, fan_in)
+                    uniform_(mod.bias, fan_in)
+            elif isinstance(mod, (ConvTranspose2x, ConvTranspose3D2x)):
+                fan_in = mod.weight[0].numel()  # C_out * the kernel's taps
                 uniform_(mod.weight, fan_in)
                 uniform_(mod.bias, fan_in)
             elif isinstance(mod, (LayerNorm, BatchNorm)):
@@ -97,19 +137,18 @@ def _refuse_mesh(config: Dict) -> None:
             "data- and tensor-parallel mesh is not ported (one device only)")
 
 
-def build_train_model(config: Dict, device="cuda") -> SmokePhysNet:
-    """SmokePhysNet from config in training mode: compute type
-    `tpu.train_compute_dtype`, `tpu.use_flash` and `tpu.fast_math` as the
-    JAX package's `create_train_state` reads them. A data- or
-    tensor-parallel mesh (`tpu.data_axis` x `tpu.model_axis` > 1) is not
-    ported and is refused, and so is the volumetric model (a 3-element
-    `data.grid_size`) until its training is ported."""
+def build_train_model(config: Dict, device="cuda") -> SmokePhysNet | SmokePhysNet3D:
+    """SmokePhysNet, or SmokePhysNet3D for a 3-element `data.grid_size`,
+    from config in training mode: compute type `tpu.train_compute_dtype`,
+    `tpu.use_flash` and `tpu.fast_math` as the JAX package's
+    `create_train_state` reads them (it never sets `fast_encoder`). A data-
+    or tensor-parallel mesh (`tpu.data_axis` x `tpu.model_axis` > 1) is not
+    ported and is refused."""
     _refuse_mesh(config)
-    if len(config.get("data", {}).get("grid_size", (0, 0))) == 3:
-        raise NotImplementedError("training the volumetric SmokePhysNet3D is not ported")
     cfg = copy.deepcopy(config)
     tpu = cfg.setdefault("tpu", {})
     tpu["compute_dtype"] = tpu.get("train_compute_dtype", "float32")
+    tpu["fast_encoder"] = False
     return build_model(cfg, device).train()
 
 
@@ -155,8 +194,8 @@ class Trainer:
     """A model in training mode, its AdamW state, the optional EMA of its
     parameters and the step's random streams."""
 
-    def __init__(self, model: SmokePhysNet, config: Dict, steps_per_epoch: int,
-                 generator: torch.Generator):
+    def __init__(self, model: SmokePhysNet | SmokePhysNet3D, config: Dict,
+                 steps_per_epoch: int, generator: torch.Generator):
         tc = config["training"]
         self.model = model
         self.physics_cfg = config["physics"]
@@ -248,8 +287,10 @@ def fit(
     train_ds,
     val_ds,
     exp_dir: str,
+    writer=None,
     resume_from: Optional[str] = None,
     init_from: Optional[str] = None,
+    log_every: int = 50,
     print_fn: Callable = print,
     device="cuda",
 ) -> Trainer:
@@ -260,7 +301,14 @@ def fit(
     weights). `init_from` starts from an npz export's weights with a fresh
     optimizer; `resume_from` (an experiment directory or a checkpoint
     file) restores everything and continues with the next epoch. A
-    data- or tensor-parallel mesh is refused."""
+    data- or tensor-parallel mesh is refused.
+
+    `writer` (a TensorBoard `SummaryWriter`, or anything with its
+    `add_scalar`) receives the JAX trainer's scalars: every `log_every`-th
+    batch of an epoch its four losses (Train/Batch_Total_Loss, _Recon_,
+    _Physics_, _Chaos_) at global step epoch * steps_per_epoch + batch,
+    written at the epoch's end; each epoch Train/Epoch_Loss, Val/Epoch_Loss
+    and Learning_Rate at the epoch."""
     _refuse_mesh(config)
     tc = config["training"]
     batch_size = tc["batch_size"]
@@ -290,16 +338,28 @@ def fit(
 
     for epoch in range(start_epoch, tc["num_epochs"]):
         t0 = time.time()
-        train_losses = [
-            trainer.train_step(b)["total_loss"]
-            for b in train_ds.epoch_batches(data_gen, batch_size, shuffle=True)
-        ]
+        train_losses, batch_logs = [], []
+        for batch_idx, b in enumerate(train_ds.epoch_batches(data_gen, batch_size,
+                                                             shuffle=True)):
+            metrics = trainer.train_step(b)
+            train_losses.append(metrics["total_loss"])
+            if writer is not None and batch_idx % log_every == 0:
+                batch_logs.append((epoch * steps_per_epoch + batch_idx, metrics))
+        # read back at the epoch's end: a read inside the loop would wait
+        # for the card at every logged step
+        for gs, metrics in batch_logs:
+            for tag, key in BATCH_SCALARS:
+                writer.add_scalar(tag, float(metrics[key]), gs)
         train_loss = float(torch.stack(train_losses).mean()) if train_losses else 0.0
         val_loss = evaluate(trainer, val_ds, batch_size, data_gen)
         trainer.epoch = epoch
+        lr = trainer.schedule(trainer.step)
+        if writer is not None:
+            writer.add_scalar("Train/Epoch_Loss", train_loss, epoch)
+            writer.add_scalar("Val/Epoch_Loss", val_loss, epoch)
+            writer.add_scalar("Learning_Rate", lr, epoch)
         print_fn(f"Epoch {epoch + 1}/{tc['num_epochs']}: train {train_loss:.4f} "
-                 f"val {val_loss:.4f} lr {trainer.schedule(trainer.step):.6f} "
-                 f"({time.time() - t0:.1f}s)")
+                 f"val {val_loss:.4f} lr {lr:.6f} ({time.time() - t0:.1f}s)")
         if val_loss < best_val_loss:
             best_val_loss = val_loss
             save_checkpoint(exp_dir, trainer, data_gen,

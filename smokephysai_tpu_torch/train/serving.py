@@ -23,13 +23,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def build_model(config: Dict, device="cuda") -> SmokePhysNet | SmokePhysNet3D:
     """SmokePhysNet from config, or SmokePhysNet3D for a 3-element
-    `data.grid_size`: `tpu.compute_dtype`, `tpu.use_flash` and
-    `tpu.fast_math` as in the JAX package. The sequence- and
-    pipeline-parallel trunks and `tpu.fast_encoder` are not ported and are
+    `data.grid_size`: `tpu.compute_dtype`, `tpu.use_flash`,
+    `tpu.fast_math` and (2D only) `tpu.fast_encoder` as in the JAX package.
+    The sequence- and pipeline-parallel trunks are not ported and are
     refused."""
     mc = config["model"]
     tpu = config.get("tpu", {})
-    for key in ("ring_axis", "pipeline_axis", "fast_encoder"):
+    for key in ("ring_axis", "pipeline_axis"):
         if tpu.get(key):
             raise NotImplementedError(f"tpu.{key} is not ported")
     dtype_name = tpu.get("compute_dtype", "float32")
@@ -58,6 +58,7 @@ def build_model(config: Dict, device="cuda") -> SmokePhysNet | SmokePhysNet3D:
         dtype=dtype,
         fast_math=tpu.get("fast_math", False),
         use_flash=tpu.get("use_flash", False),
+        fast_encoder=tpu.get("fast_encoder", False),
     )
     return model.to(device).eval()
 

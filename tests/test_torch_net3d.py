@@ -7,7 +7,6 @@ The JAX variables come from `jax.eval_shape(init)` filled with numpy draws
 with numpy from a seed and injected into both models. Tolerances are
 stated per test.
 """
-import copy
 import os
 
 import jax
@@ -29,7 +28,6 @@ from smokephysai_tpu_torch.models.convert import (
 from smokephysai_tpu_torch.models.layers import Conv3D, ConvTranspose3D2x
 from smokephysai_tpu_torch.models.net3d import SmokePhysNet3D
 from smokephysai_tpu_torch.ops.image import resize_trilinear
-from smokephysai_tpu_torch.train import loop
 from smokephysai_tpu_torch.train.serving import (
     build_model,
     load_model,
@@ -235,14 +233,3 @@ def test_chunked_predictor_equals_one_full_batch(small):
         for k in full:
             torch.testing.assert_close(out[k], full[k], atol=1e-6, rtol=1e-5,
                                        msg=f"{k} chunk={chunk}")
-
-
-def test_trainer_refuses_the_volumetric_model():
-    """Training the 3D model is not ported: `build_train_model` refuses a
-    3-element grid, and the model refuses a training-mode forward."""
-    config = load_config(CONFIG)
-    with pytest.raises(NotImplementedError, match="volumetric"):
-        loop.build_train_model(copy.deepcopy(config), device="cpu")
-    model = build_model(config, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 8, 8, 8, 1), generator=torch.Generator())

@@ -9,6 +9,7 @@ Tolerances are stated per test.
 import copy
 import glob
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -77,8 +78,10 @@ def test_compute_losses_matches_jax(with_sequence):
     else:
         batch["continuity"] = np.mean(np.abs(np.diff(seq, axis=1)), axis=(1, 2, 3))
     cfg = load_config(None)["physics"]
-    jtotal, jm = jloop.compute_losses({k: jnp.asarray(v) for k, v in outputs.items()},
-                                      {k: jnp.asarray(v) for k, v in batch.items()}, cfg)
+    # one compile of the whole function (eagerly, each operation compiles alone)
+    jtotal, jm = jax.jit(lambda o, b: jloop.compute_losses(o, b, cfg))(
+        {k: jnp.asarray(v) for k, v in outputs.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()})
     total, m = loop.compute_losses({k: torch.from_numpy(v) for k, v in outputs.items()},
                                    {k: torch.from_numpy(np.ascontiguousarray(v))
                                     for k, v in batch.items()}, cfg)
@@ -99,7 +102,7 @@ def test_cosine_schedule_matches_jax(epochs, spe, sched_epochs, offset):
     sched = loop.cosine_epoch_schedule(1e-3, epochs, spe, sched_epochs, offset)
     steps = np.arange(0, (epochs + 2) * spe)
     np.testing.assert_allclose([sched(int(s)) for s in steps],
-                               np.asarray(jax.vmap(jsched)(jnp.asarray(steps))),
+                               np.asarray(jax.jit(jax.vmap(jsched))(jnp.asarray(steps))),
                                rtol=1e-6, atol=1e-10)
 
 
@@ -300,7 +303,10 @@ def test_cli_trains_one_epoch_and_serves(tmp_path, monkeypatch):
     fast recipe (bf16, flash, fast_math) cut to a 32^2 grid, 4 training and
     2 validation episodes and a small model; the npz it writes loads through
     `load_model` and serves finite predictions; a resume from the last
-    checkpoint restores the step."""
+    checkpoint restores the step. tensorboard is made unimportable (where
+    TensorFlow is installed its import loads it, ~20 s): the CLI goes on
+    without its writer, as the JAX CLI does."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.chdir(tmp_path)
     sets = ["data.grid_size=[32,32]", "simulation.grid_size=[32,32]",
             "data.num_train=4", "data.num_val=2", "training.num_epochs=1",
@@ -342,8 +348,9 @@ def test_cli_trains_one_epoch_and_serves(tmp_path, monkeypatch):
 def test_resume_auto_takes_the_newest_experiment(tmp_path, monkeypatch):
     """`--resume auto` resumes the newest experiment directory (by its
     timestamped name) that holds best_model.pt, and starts afresh when there
-    is none, as the JAX CLI's `latest_checkpoint` does. `fit` and the data
-    are stubbed: only the argument handed to `fit` is checked."""
+    is none, as the JAX CLI's `latest_checkpoint` does. `fit`, the data and
+    tensorboard are stubbed: only the argument handed to `fit` is
+    checked."""
     from smokephysai_tpu_torch.train import __main__ as cli
     from smokephysai_tpu_torch.train.checkpoint import latest_checkpoint
 
@@ -358,6 +365,7 @@ def test_resume_auto_takes_the_newest_experiment(tmp_path, monkeypatch):
     newest = os.path.join("experiments", "smokephys_20260201_000000")
     assert latest_checkpoint() == newest
     seen = []
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.setattr(cli, "create_data_loaders", lambda **kw: (None, None))
     monkeypatch.setattr(cli, "fit", lambda *a, resume_from, **kw: seen.append(resume_from))
     argv = ["--config", os.path.join(ROOT, "config", "config_64.yaml"), "--device", "cpu"]
