@@ -7,10 +7,12 @@ From the root of a checkout, with one CUDA card:
 
 1. prints the card, the device count and nvidia-smi's name and power limit;
 2. builds the six CUDA sources with nvcc (in parallel) and prints the
-   seconds; counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-   in the SASS of libflash_tokens.so and libflash_bwd.so (cuobjdump) and
-   fails if either is 0 in either, or if ptxas reported serialised wgmma
-   (C75xx) for a kernel of flash_bwd.cu; prints the registers and spills
+   seconds; counts the HGMMA (wgmma), UTMALDG (TMA load) and
+   HMMA.1688.F32.TF32 (mma.sync m16n8k8 TF32: the float32 kernels' split
+   products) instructions in the SASS of libflash_tokens.so and
+   libflash_bwd.so (cuobjdump) and fails if any is 0 in either, or if ptxas
+   reported serialised wgmma (C75xx) for a kernel of flash_bwd.cu; prints
+   the float32 flash kernels' registers and spills; prints the registers and spills
    of libfused_step.so's and libcg3d.so's kernels (ptxas) and counts the
    former's cluster-barrier instructions (UCGABAR_ARV, UCGABAR_WAIT),
    failing if there are none;
@@ -34,7 +36,10 @@ From the root of a checkout, with one CUDA card:
    version there in bf16 and float32 and at the JAX tests' shapes; the
    lean forward and the forward with logsumexp in bf16 at L = 192 (head
    dims 64, 16, 128) and L = 1024 (16, 128), B >= 3, each lean output the
-   same bits as the LSE one and as a second call);
+   same bits as the LSE one and as a second call); the three float32
+   kernels and the split pair at [8, 1024, 512] (the float32 train step's
+   shape), each forward run twice (bit-equal) and the lean output equal to
+   the LSE forward's;
 4. serving phase: the serving path of `config/config_serving.yaml` on
    `checkpoints/smokephysnet_128_best.npz` through the port's entry points:
    the 20-frame test sequence (20 fused-step launches) and one batched bf16
@@ -52,11 +57,20 @@ From the root of a checkout, with one CUDA card:
    the same step under SMOKEPHYS_FUSED_BWD=0 (6 forward-with-lse, 6 dq and
    6 dk/dv launches, no fused one) held against the plain backward, the
    train step on both routes timed in turns, one eval pass, a checkpoint
-   written and served again through `train/serving.load_model`;
+   written and served again through `train/serving.load_model`; then the
+   float32 flash train step of `config/config_polish_f32.yaml` (float32,
+   use_flash, batch 8, full width): one step on each backward route (6 + 6
+   launches) held against the same step with use_flash off (loss and
+   gradient norm), and the flash and einsum steps timed in turns with their
+   peak memory;
 7. timing phase: CUDA-event medians after warm-up (the backward kernels
    and SDPA's backward in turns, the median of three rounds; the fused
    solver kernels at 128^2 x 1 and x 64, 1024^2 x 1 and 64 x 20 steps also
-   with their launch plan, and at 128^2 the kernel's device time);
+   with their launch plan, and at 128^2 the kernel's device time; the
+   float32 flash kernels at [8, 1024, 512] beside their plain versions,
+   their bounds at 165 TFLOP/s and SDPA's float32 calls, and the float32
+   lean forward at the PGD report's [50, 1024, 512], checked against its
+   plain version and timed the same way);
    with --trace, also
    traces the serving forward, the simulator step and one train step with
    torch.profiler and prints where their device time goes;
@@ -117,8 +131,8 @@ From the root of a checkout, with one CUDA card:
    0.000650; the five-section evaluation report of `config/config.yaml` at
    50 samples and 50 scenarios with the seconds and launches of each
    section, failing on a NaN or an infinity; its PGD section again under
-   `tpu.use_flash` at 10 samples (float32 flash kernels: 12 lean, 60
-   forward-with-logsumexp and 60 backward launches); and the volumetric branches
+   `tpu.use_flash` at 50 samples, as the einsum one (float32 flash kernels:
+   12 lean, 60 forward-with-logsumexp and 60 backward launches); and the volumetric branches
    at 2 volumes of 128^3 (the benchmark's model row and baselines, the
    report's physics_consistency and reconstruction; 24 CG launches each);
    after the training phase, also the float32 einsum train step of
@@ -147,9 +161,11 @@ From the root of a checkout, with one CUDA card:
    against the einsum step (loss and gradient norm) on the fused route (4
    forward-with-logsumexp and 4 backward launches) and the split route (4
    dq and 4 dk/dv launches);
-13. prints the kernels' JSON line (this slice's paths as entries of their
+13. prints the kernels' JSON line (later slices' paths as entries of their
    own: the fused step and the lean kernel on the stream, the CG kernel and
-   the head_dim-32 training kernels in volumetric training), the SASS
+   the head_dim-32 training kernels in volumetric training, the float32
+   kernels at [8, 1024, 512] on the config_polish_f32 step and the float32
+   lean kernel at [50, 1024, 512] in the PGD report), the SASS
    counts, the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without that last line: there is no CPU
@@ -176,10 +192,15 @@ VOL_CONFIG = os.path.join(ROOT, "config", "config_128cubed.yaml")
 VOL_CHECKPOINT = os.path.join(ROOT, "checkpoints", "smokephysnet3d_128cubed.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16 tensor
-# core FLOP/s, float32 FLOP/s outside the tensor cores
+# core FLOP/s, float32 FLOP/s outside the tensor cores (the solvers' bound)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# the float32 flash kernels' bound: float32-accurate products as three TF32
+# products each (split TF32) at the 495 TFLOP/s of the TF32 tensor cores
+F32_FLASH_FLOPS = 495e12 / 3
+# the SASS of the split-TF32 product (mma.sync m16n8k8 TF32) on sm_90a
+TF32_MMA = "HMMA.1688.F32.TF32"
 
 # bounds of the kernel-vs-plain and slice checks
 FUSED_ATOL = 1e-5      # the kernel rounds as the plain version (-fmad=false)
@@ -218,6 +239,12 @@ TRAIN_PROJ_GRAD_REL_NORM = 2.0 ** -6
 # this flips in its own backward (largest 1.65e-3, the first layer's)
 TRAIN_BWD_TOP_PROJ_GRAD_REL_NORM = 2.0 ** -10
 TRAIN_BWD_PROJ_GRAD_REL_NORM = 2.0 ** -8
+# the float32 flash step (config_polish_f32) against the same step with
+# einsum, q, k, v projection gradients ||d|| / ||ref||: both sides float32
+# (the kernels within 1e-5 of the plain versions, ~1e-6 read), carried
+# through six layers. At random weights the loss is ~3.5e6 (the physics
+# terms), so the loss and the norm only show what moves them by an ulp
+TRAIN_F32_PROJ_GRAD_REL_NORM = 1e-4
 TRAIN_NUM = 64  # cuts of config_train_fast.yaml: episodes and steps
 VAL_NUM = 8
 TRAIN_STEPS = 10
@@ -253,10 +280,8 @@ PARITY_VORT_MSE, PARITY_VORT_CORR = 0.000650, 0.9963  # PARITY.md, 256^2 vortici
 VORT_GAP = 0.10  # a larger gap to PARITY's 256^2 figure is written up in PERF.md
 EVAL_PHYSICS_TESTS = 50
 GATE_VOLUMES = 2  # the volumetric branches at 2 volumes of 128^3
-# PGD under use_flash: one batch, so the same launches as at GATE_SAMPLES
-# (cut from 50 to keep the script near three minutes with the streaming and
-# volumetric training phases)
-FLASH_PGD_SAMPLES = 10
+# PGD under use_flash: one batch of GATE_SAMPLES, as the einsum PGD
+FLASH_PGD_SAMPLES = GATE_SAMPLES
 
 # the streaming phase: config_streaming_1024.yaml uncut (1024^2, batch 1)
 STREAM_CONFIG = os.path.join(ROOT, "config", "config_streaming_1024.yaml")
@@ -267,6 +292,8 @@ VOL_TRAIN_EPISODES = 32 + 8  # the config's train + validation episodes, uncut
 TIMED_STEPS = 5  # train steps timed after WARM_STEPS (the f32 and 3D steps)
 WARM_STEPS = 2
 F32_CONFIG = os.path.join(ROOT, "config", "config_twophase_f32.yaml")
+# the float32 flash train step: float32, use_flash, batch 8, full width
+POLISH_CONFIG = os.path.join(ROOT, "config", "config_polish_f32.yaml")
 
 TRACE_RUNS = 5  # traced serving forwards in --trace
 BIG_GRID = 1024  # config_streaming_1024.yaml's grid: the fused step's global mode
@@ -674,6 +701,26 @@ def sass_counts(library, mnemonics=("HGMMA", "UTMALDG")):
     if out.returncode != 0:
         fail(f"cuobjdump -sass {library} failed: {out.stderr.strip()[:500]}")
     return tuple(out.stdout.count(m) for m in mnemonics)
+
+
+def f32_kernel_resources(log):
+    """(kernel<template arguments>, registers and spills) of each float32
+    flash kernel in a source's ptxas -v log."""
+    import re
+
+    out, name, spills = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d(flash_\w*?f32_kernel)ILi(\d+)E(?:Lb(\d)E)?", m.group(1))
+            lse = "" if k is None or k.group(3) is None else ", " + k.group(3)
+            name = k and f"{k.group(1)}<{k.group(2)}{lse}>"
+        elif name and "spill" in line:  # ptxas prints the spills, then the registers
+            spills = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append((name, f"{line.split('Used')[1].split(',')[0].strip()}; {spills}"))
+            name = None
+    return out
 
 
 def device_ms(fn, calls=20):
@@ -1248,8 +1295,9 @@ def vorticity_phase(dev, name, trace):
 
 def flash_check(attn_ops, q, k, v, g, heads, tag):
     """The three flash kernels and the split backward pair against their
-    plain versions at one shape, with the head_dim-64 checks' bounds;
-    returns the largest |d| of each."""
+    plain versions at one shape, with the head_dim-64 checks' bounds; each
+    forward run twice, bit-equal, and the lean output equal to the LSE
+    forward's to the bit; returns the largest |d| of each."""
     import torch
 
     o = attn_ops.flash_attention_tokens(q, k, v, heads)
@@ -1258,9 +1306,15 @@ def flash_check(attn_ops, q, k, v, g, heads, tag):
     rl, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
     kg = attn_ops.flash_attention_tokens_bwd(q, k, v, rl, rlse, g, heads)
     pg = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, rl, rlse, g, heads)
+    again, (ol2, lse2) = (attn_ops.flash_attention_tokens(q, k, v, heads),
+                          attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads))
     torch.cuda.synchronize()
+    same = (torch.equal(o, ol) and torch.equal(o, again) and torch.equal(ol, ol2)
+            and torch.equal(lse, lse2))
+    say(f"kernel flash_attention_tokens (+ _fwd_lse) {tag}: lean = LSE output, and each "
+        f"forward = its second run, bit for bit: {same}")
     errs = {}
-    ok = True
+    ok = same
     for kname, a, b in (("flash_attention_tokens", o, r),
                         ("flash_attention_tokens_fwd_lse", ol, rl)):
         err, rel = maxerr(a, b), rel_norm(a, b)
@@ -1286,6 +1340,114 @@ def flash_check(attn_ops, q, k, v, g, heads, tag):
         fail(f"a flash kernel disagrees with its plain version at {tag}")
     errs.update(split_check(attn_ops, (q, k, v, rl, rlse, g), heads, tag, bwd_bound, kg))
     return errs
+
+
+def flash_timings(attn_ops, dev, gen, batch, length, width, heads, dtype, name):
+    """The lean and LSE forwards, the fused backward (with its delta, dq
+    zeroing and cast) and the split pair's kernels alone (delta given) at
+    [batch, length, width], each beside its plain version, its bound and one
+    PyTorch call (SDPA: the forward with inputs that need a gradient for the
+    LSE forward, its autograd backward for the backward kernels); the
+    backward kernels and SDPA's backward in turns, three rounds. Bounds:
+    bf16 at the bf16 tensor-core rate, float32 at F32_FLASH_FLOPS. Returns
+    {kname: (ms, plain ms, bound ms, bound by, library ms)}."""
+    import torch
+
+    hd = width // heads
+    q, k, v, g = (torch.randn(batch, length, width, generator=gen).to(dev, dtype)
+                  for _ in range(4))
+    f32 = dtype == torch.float32
+    peak, tname = (F32_FLASH_FLOPS, "f32") if f32 else (BF16_FLOPS, "bf16")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t_.view(batch, length, heads, hd).transpose(1, 2).detach().requires_grad_()
+                  for t_ in (q, k, v))
+    gh = g.view(batch, length, heads, hd).transpose(1, 2)
+    o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    pair = batch * heads * length * length * hd
+    io = 4 * batch * length * width * q.element_size()
+    lse_bytes = batch * heads * length * 4
+    lean = (timed(lambda: attn_ops.flash_attention_tokens(q, k, v, heads)),
+            timed(lambda: attn_ops.flash_attention_tokens_reference(q, k, v, heads)),
+            *lower_bound(io, 4 * pair, peak),
+            timed(lambda: sdpa(qh.detach(), kh.detach(), vh.detach())))
+    fwd = (timed(lambda: attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)),
+           timed(lambda: attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)),
+           *lower_bound(io + lse_bytes, 4 * pair, peak),
+           timed(lambda: sdpa(qh, kh, vh)))
+    oh = sdpa(qh, kh, vh)
+    delta = attn_ops._delta(o, g, heads)
+    turns = in_turns({  # the backward kernels and SDPA's backward, three rounds
+        "kernel": lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads),
+        "dq": lambda: attn_ops._launch_bwd_dq(q, k, v, g, lse, delta, heads, 1.0),
+        "dkv": lambda: attn_ops._launch_bwd_dkv(q, k, v, g, lse, delta, heads, 1.0),
+        "sdpa": lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)})
+    bwd = (turns["kernel"],
+           timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
+               q, k, v, o, lse, g, heads), runs=5),
+           *lower_bound(2 * io + lse_bytes, 10 * pair, peak),
+           turns["sdpa"])
+    out = {}
+    tag = f"[{batch},{length},{width}] {tname} head_dim {hd} on {name}"
+    for kname, t_, flops in (("flash_attention_tokens", lean, 4 * pair),
+                             ("flash_attention_tokens_fwd_lse", fwd, 4 * pair),
+                             ("flash_attention_tokens_bwd", bwd, 10 * pair)):
+        out[kname] = t_
+        say(f"time {kname} {tag}: kernel {t_[0]:.4f} ms ({flash_rate(flops, t_[0], t_[2])}), "
+            f"plain {t_[1]:.4f} ms, SDPA {t_[4]:.4f} ms, bound {t_[2]:.6f} ms ({t_[3]})")
+    # the split pair's kernels alone on one delta (q, k, v, dO, lse and
+    # delta read once, the gradients written once)
+    for kname, products, outs, ref in (
+            ("flash_attention_tokens_bwd_dq", 3, 1,
+             attn_ops.flash_attention_tokens_bwd_dq_reference),
+            ("flash_attention_tokens_bwd_dkv", 4, 2,
+             attn_ops.flash_attention_tokens_bwd_dkv_reference)):
+        ms = turns[kname.rsplit("_", 1)[1]]
+        kb = lower_bound((4 + outs) * io // 4 + 2 * lse_bytes, 2 * products * pair, peak)
+        plain_ms = timed(lambda: ref(q, k, v, o, lse, g, heads), runs=5)
+        out[kname] = (ms, plain_ms, *kb, turns["sdpa"])
+        say(f"time {kname} {tag}: kernel {ms:.4f} ms (delta given; "
+            f"{flash_rate(2 * products * pair, ms, kb[0])}), plain {plain_ms:.4f} ms, SDPA "
+            f"backward {turns['sdpa']:.4f} ms, bound {kb[0]:.6f} ms ({kb[1]}); medians of "
+            f"three rounds in turns")
+    return out
+
+
+def lean_f32_check(attn_ops, dev, gen, batch, width, heads, name):
+    """The float32 lean forward at [batch, 1024, width] (the PGD report
+    under use_flash runs it on one batch of GATE_SAMPLES): against its plain
+    version at FLASH_F32_ATOL, run twice bit-equal and equal to the LSE
+    forward's output to the bit, then timed beside its plain version, its
+    bound and SDPA on the same tensors. Returns (max |d|, (ms, plain ms,
+    bound ms, bound by, SDPA ms))."""
+    import torch
+
+    hd = width // heads
+    q, k, v = (torch.randn(batch, 1024, width, generator=gen).to(dev) for _ in range(3))
+    o = attn_ops.flash_attention_tokens(q, k, v, heads)
+    again = attn_ops.flash_attention_tokens(q, k, v, heads)
+    ol, _ = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    r = attn_ops.flash_attention_tokens_reference(q, k, v, heads)
+    torch.cuda.synchronize()
+    same = torch.equal(o, again) and torch.equal(o, ol)
+    err, rel = maxerr(o, r), rel_norm(o, r)
+    tag = f"[{batch},1024,{width}] f32 head_dim {hd}"
+    say(f"kernel flash_attention_tokens {tag}: max|d| {err:.3e} (bound "
+        f"{FLASH_F32_ATOL:g}), ||d||/||ref|| {rel:.3e}; rerun and LSE output bit-equal: "
+        f"{same}")
+    if not (same and err <= FLASH_F32_ATOL):
+        fail(f"the float32 lean forward disagrees with its plain version at {tag}")
+    del o, again, ol, r
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t_.view(batch, 1024, heads, hd).transpose(1, 2) for t_ in (q, k, v))
+    pair = batch * heads * 1024 * 1024 * hd
+    t_ = (timed(lambda: attn_ops.flash_attention_tokens(q, k, v, heads)),
+          timed(lambda: attn_ops.flash_attention_tokens_reference(q, k, v, heads), runs=5),
+          *lower_bound(4 * batch * 1024 * width * 4, 4 * pair, F32_FLASH_FLOPS),
+          timed(lambda: sdpa(qh, kh, vh)))
+    say(f"time flash_attention_tokens {tag} on {name}: kernel {t_[0]:.4f} ms "
+        f"({flash_rate(4 * pair, t_[0], t_[2])}), plain {t_[1]:.4f} ms, SDPA {t_[4]:.4f} "
+        f"ms, bound {t_[2]:.6f} ms ({t_[3]})")
+    return err, t_
 
 
 def volumetric_phase(dev, name, trace):
@@ -1525,65 +1687,12 @@ def volumetric_phase(dev, name, trace):
     # the flash kernels at head_dim 32: bf16 at B = 1 and 8, and float32 at
     # B = 1 (what the 3D model's paths launch: serving, the input gradient
     # and the train step under use_flash), keyed (kname, batch) and
-    # (kname, "f32"); float32 bounds at the non-tensor float32 rate (the
-    # float32 kernels do not use the tensor cores)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # (kname, "f32")
     for batch, dtype in ((1, torch.bfloat16), (8, torch.bfloat16), (1, torch.float32)):
-        q, k, v, g = (torch.randn(batch, 512, width, generator=gen).to(dev, dtype)
-                      for _ in range(4))
-        f32 = dtype == torch.float32
-        key, peak, tname = ("f32", F32_FLOPS, "f32") if f32 else (batch, BF16_FLOPS, "bf16")
-        qh, kh, vh = (t_.view(batch, 512, heads, hd).transpose(1, 2).detach().requires_grad_()
-                      for t_ in (q, k, v))
-        gh = g.view(batch, 512, heads, hd).transpose(1, 2)
-        o, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
-        fwd_flops = 4 * batch * heads * 512 * 512 * hd
-        io = 4 * batch * 512 * width * q.element_size()
-        lean = (timed(lambda: attn_ops.flash_attention_tokens(q, k, v, heads)),
-                timed(lambda: attn_ops.flash_attention_tokens_reference(q, k, v, heads)),
-                *lower_bound(io, fwd_flops, peak),
-                timed(lambda: sdpa(qh.detach(), kh.detach(), vh.detach())))
-        fwd = (timed(lambda: attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)),
-               timed(lambda: attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)),
-               *lower_bound(io + batch * heads * 512 * 4, fwd_flops, peak),
-               timed(lambda: sdpa(qh, kh, vh)))
-        oh = sdpa(qh, kh, vh)
-        delta = attn_ops._delta(o, g, heads)
-        turns = in_turns({  # the backward kernels and SDPA's backward, three rounds
-            "kernel": lambda: attn_ops.flash_attention_tokens_bwd(q, k, v, o, lse, g, heads),
-            "dq": lambda: attn_ops._launch_bwd_dq(q, k, v, g, lse, delta, heads, 1.0),
-            "dkv": lambda: attn_ops._launch_bwd_dkv(q, k, v, g, lse, delta, heads, 1.0),
-            "sdpa": lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)})
-        bwd = (turns["kernel"],
-               timed(lambda: attn_ops.flash_attention_tokens_bwd_reference(
-                   q, k, v, o, lse, g, heads), runs=5),
-               *lower_bound(2 * io + batch * heads * 512 * 4,
-                            10 * batch * heads * 512 * 512 * hd, peak),
-               turns["sdpa"])
-        for kname, t_ in (("flash_attention_tokens", lean),
-                          ("flash_attention_tokens_fwd_lse", fwd),
-                          ("flash_attention_tokens_bwd", bwd)):
+        key = "f32" if dtype == torch.float32 else batch
+        for kname, t_ in flash_timings(attn_ops, dev, gen, batch, 512, width, heads, dtype,
+                                       name).items():
             timings[(kname, key)] = t_
-            say(f"time {kname} [{batch},512,{width}] {tname} head_dim {hd} on {name}: kernel "
-                f"{t_[0]:.4f} ms, plain {t_[1]:.4f} ms, SDPA {t_[4]:.4f} ms, bound "
-                f"{t_[2]:.6f} ms ({t_[3]})")
-        # the split pair's kernels alone on one delta (q, k, v, dO, lse and
-        # delta read once, the gradients written once)
-        for kname, products, outs, ref in (
-                ("flash_attention_tokens_bwd_dq", 3, 1,
-                 attn_ops.flash_attention_tokens_bwd_dq_reference),
-                ("flash_attention_tokens_bwd_dkv", 4, 2,
-                 attn_ops.flash_attention_tokens_bwd_dkv_reference)):
-            ms = turns[kname.rsplit("_", 1)[1]]
-            kb = lower_bound((4 + outs) * io // 4 + 2 * batch * heads * 512 * 4,
-                             2 * products * batch * heads * 512 * 512 * hd, peak)
-            plain_ms = timed(lambda: ref(q, k, v, o, lse, g, heads), runs=5)
-            timings[(kname, key)] = (ms, plain_ms, *kb, turns["sdpa"])
-            say(f"time {kname} [{batch},512,{width}] {tname} head_dim {hd} on {name}: kernel "
-                f"{ms:.4f} ms (delta given), plain {plain_ms:.4f} ms, SDPA backward "
-                f"{turns['sdpa']:.4f} ms, bound {kb[0]:.6f} ms ({kb[1]}); medians of three "
-                f"rounds in turns")
-        del q, k, v, g, qh, kh, vh, gh, o, lse, oh, delta
     del model, predict, ds, seqs
     return {"gen_counts": gen_counts, "flash_counts": {**flash_serve_counts, **{
         k_: grad_counts[k_] for k_ in ("flash_attention_tokens_fwd_lse",
@@ -1729,6 +1838,7 @@ def gate_phase(dev):
         fail(f"PGD under use_flash launched {counts}")
     if not all(math.isfinite(x) for x in numbers(flash_report)):
         fail("the use_flash PGD report holds a NaN or an infinity")
+    results["flash_pgd"] = {"counts": counts, "seconds": sections["adversarial"][0]}
 
     # d. the volumetric branches at 2 volumes of 128^3
     vol = load_config(VOL_CONFIG)
@@ -1829,6 +1939,115 @@ def f32_train_step(train_ds, dev, name):
                                name)
     del trainer, model
     return result
+
+
+def polish_f32_phase(train_ds, dev, name):
+    """config_polish_f32.yaml's train step (float32, use_flash, batch 8, full
+    width: the float32 flash kernels at [8,1024,512], 8 heads of 64) on the
+    dataset phase's episodes. One step from the same weights, batch, chaos
+    fields and dropout stream on the fused route (6 forward-with-logsumexp
+    and 6 fused backward launches) and on the split route (6 dq and 6 dk/dv)
+    held against the same step with use_flash off (float32 einsum, no
+    launch): loss, gradient norm and each q, k, v projection's gradient.
+    Then the flash step and that einsum step in turns, WARM_STEPS of each
+    and then TIMED_STEPS (CUDA events, TF32 off), the medians and each one's
+    peak memory."""
+    import copy
+
+    import torch
+
+    from smokephysai_tpu_torch.train import loop
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    config = load_config(POLISH_CONFIG)
+    if not (config["tpu"]["use_flash"] and config["tpu"]["train_compute_dtype"] == "float32"):
+        fail("config_polish_f32.yaml no longer trains in float32 with use_flash")
+    bs, seed = config["training"]["batch_size"], config["tpu"]["seed"]
+    layers = config["model"]["num_layers"]
+    einsum_config = copy.deepcopy(config)
+    einsum_config["tpu"]["use_flash"] = False
+    data_gen = torch.Generator().manual_seed(seed)
+
+    def batches():
+        while True:
+            yield from train_ds.epoch_batches(data_gen, bs, shuffle=True)
+
+    it = batches()
+    model = loop.init_parameters(loop.build_train_model(config, dev),
+                                 torch.Generator(dev).manual_seed(seed))
+    state = copy.deepcopy(model.state_dict())
+    batch = next(it)
+    fields = model.chaos_fields(torch.Generator(dev).manual_seed(7), bs, dev)
+    trainers, runs = {}, {}
+    for mode in ("einsum", "flash", "flash, split backward"):
+        cfg = einsum_config if mode == "einsum" else config
+        twin = loop.build_train_model(cfg, dev)
+        twin.load_state_dict(state)
+        tw = loop.Trainer(twin, cfg, len(train_ds) // bs, torch.Generator(dev).manual_seed(1))
+        reset_counts()
+        with split_backward() if "split" in mode else contextlib.nullcontext():
+            m = tw.train_step(batch, chaos_fields=fields)
+        torch.cuda.synchronize()
+        # the clipped gradients the optimizer applied, back to their scale
+        clip = min(1.0, 1.0 / float(m["grad_norm"]))
+        proj = {n: p.grad / clip for n, p in twin.named_parameters()
+                if n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight"))}
+        runs[mode] = (float(m["total_loss"]), float(m["grad_norm"]), read_counts(), proj)
+        if "split" not in mode:
+            trainers[mode] = tw
+    el, en, ec, eg = runs["einsum"]
+    expect_counts("config_polish_f32 train step, einsum", ec)
+    want = {"flash": dict(flash_attention_tokens_fwd_lse=layers,
+                          flash_attention_tokens_bwd=layers),
+            "flash, split backward": dict(flash_attention_tokens_fwd_lse=layers,
+                                          flash_attention_tokens_bwd_dq=layers,
+                                          flash_attention_tokens_bwd_dkv=layers)}
+    ok = True
+    for mode, counts in want.items():
+        expect_counts(f"config_polish_f32 train step, {mode}", runs[mode][2], **counts)
+        fl, fn, fc, fg = runs[mode]
+        loss_rel, norm_rel = abs(fl - el) / abs(el), abs(fn - en) / abs(en)
+        rel = {n: rel_norm(fg[n], eg[n]) for n in eg}
+        say(f"config_polish_f32 train step (float32, B={bs}, full width), {mode} vs einsum: "
+            f"loss {fl:.6f} vs {el:.6f} (rel {loss_rel:.3e}, bound {TRAIN_LOSS_RTOL:g}), "
+            f"gradient norm {fn:.5f} vs {en:.5f} (rel {norm_rel:.3e}, bound "
+            f"{TRAIN_GRAD_NORM_RTOL:g}); q, k, v projection gradients ||d||/||ref|| "
+            f"largest {max(rel.values()):.3e} (bound {TRAIN_F32_PROJ_GRAD_REL_NORM:g}); by "
+            f"layer, q k v: {[float(f'{x:.3e}') for x in rel.values()]}; launches {fc}")
+        ok &= (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_GRAD_NORM_RTOL
+               and len(rel) == 3 * layers and max(rel.values()) <= TRAIN_F32_PROJ_GRAD_REL_NORM)
+    if not ok:
+        fail("the float32 flash train step disagrees with the einsum step")
+
+    # the flash and einsum steps in turns
+    ms, peak = {m_: [] for m_ in trainers}, dict.fromkeys(trainers, 0.0)
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        for mode, tw in trainers.items():
+            step_batch = next(it)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            m = tw.train_step(step_batch)
+            b.record()
+            b.synchronize()
+            expect_counts(f"config_polish_f32 timed step, {mode}", read_counts(),
+                          **want.get(mode, {}))
+            if not math.isfinite(float(m["total_loss"])):
+                fail(f"non-finite loss in the config_polish_f32 {mode} step")
+            if i >= WARM_STEPS:
+                ms[mode].append(a.elapsed_time(b))
+                peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated() / 2 ** 30)
+    result = {m_: (statistics.median(v), peak[m_]) for m_, v in ms.items()}
+    for mode, (med, gib) in result.items():
+        say(f"time train step (config_polish_f32: float32, B={bs}, full width, {mode}; no "
+            f"TF32) on {name}: median {med:.3f} ms of {TIMED_STEPS} after {WARM_STEPS} "
+            f"warm-up, in turns with the other (CUDA events; "
+            f"{[round(x, 2) for x in ms[mode]]}), peak memory {gib:.2f} GiB")
+    del trainers, model
+    return {"counts": runs["flash"][2], "split_counts": runs["flash, split backward"][2],
+            "steps": result}
 
 
 def streaming_phase(dev, name, smi_line, trace):
@@ -2231,11 +2450,16 @@ def main():
     sass_lines = []
     for src in (attn_ops.SOURCE, attn_ops.BWD_SOURCE):
         lib = os.path.basename(_build.library_path(src, attn_ops.FLAGS))
-        sass = sass_counts(_build.library_path(src, attn_ops.FLAGS))
+        sass = sass_counts(_build.library_path(src, attn_ops.FLAGS),
+                           ("HGMMA", "UTMALDG", TF32_MMA))
         sass_lines.append(f"sass {lib}: cuobjdump not in the toolkit" if sass is None else
-                          f"sass {lib}: HGMMA {sass[0]}, UTMALDG {sass[1]} (cuobjdump -sass)")
-        if sass is not None and min(sass) == 0:
+                          f"sass {lib}: HGMMA {sass[0]}, UTMALDG {sass[1]}, {TF32_MMA} "
+                          f"{sass[2]} (cuobjdump -sass)")
+        if sass is not None and min(sass[:2]) == 0:
             fail(f"the flash kernels of {src} do not run on wgmma and TMA: {sass_lines[-1]}")
+        if sass is not None and sass[2] == 0:
+            fail(f"the float32 flash kernels of {src} do not run on the TF32 tensor cores: "
+                 f"{sass_lines[-1]}")
     step_lib = _build.library_path(step_ops.SOURCE, step_ops.FLAGS)
     bars = sass_counts(step_lib, ("UCGABAR_ARV", "UCGABAR_WAIT"))
     sass_lines.append(f"sass {os.path.basename(step_lib)}: cuobjdump not in the toolkit"
@@ -2261,6 +2485,9 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "serialized" in line:
                 say(f"  {src}: {line.strip()}")
+    for src in (attn_ops.SOURCE, attn_ops.BWD_SOURCE):
+        for kname, use in f32_kernel_resources(_build.build_logs.get(src, "")):
+            say(f"ptxas {src} {kname}: {use}")
     serialised = [line.strip() for line in _build.build_logs.get(attn_ops.BWD_SOURCE, "")
                   .splitlines() if "wgmma.mma_async instructions are serialized" in line]
     if serialised:
@@ -2434,6 +2661,15 @@ def main():
             f"B={train_batch} L=1024 D={width} H={heads} {tag}", rel_bound, kg)
         del qd, kd, vd, gd, od, lsed, kg, pg
     del q, k, v, g, o, lse, ro, rlse
+    # the float32 kernels at the float32 train step's shape (config_polish_f32
+    # and the PGD report under use_flash: 8 heads of 64)
+    t = time.time()
+    q, k, v, g = (torch.randn(train_batch, 1024, width, generator=gen).to(dev)
+                  for _ in range(4))
+    f32_errs = flash_check(attn_ops, q, k, v, g, heads,
+                           f"[{train_batch},1024,{width}] f32 head_dim {width // heads}")
+    del q, k, v, g
+    say(f"float32 flash checks at [{train_batch},1024,{width}]: {time.time() - t:.1f} s")
     hm_counts, hm_err = head_major_check(attn_ops, dev, gen, train_batch, heads,
                                          width // heads)
     extra_lean_err, extra_lse_err = forward_extra_checks(attn_ops, dev, gen)
@@ -2516,6 +2752,9 @@ def main():
     trainer, train_batches, train_info = training_phase(
         train_config, train_ds, val_ds, dev)
     f32_train_step(train_ds, dev, name)
+    t = time.time()
+    polish = polish_f32_phase(train_ds, dev, name)
+    say(f"config_polish_f32 phase: {time.time() - t:.1f} s")
 
     # ---------------------------------------------------------------- timing
     def step_bound(episodes):
@@ -2703,6 +2942,16 @@ def main():
         f"head-major tensors) {lib_ms:.4f} ms ({flash_rate(fl, lib_ms, hb[0])}), bound "
         f"{hb[0]:.4f} ms ({hb[1]})")
     del qh, kh, vh
+    # the float32 kernels at [8,1024,512] (config_polish_f32's step, the PGD
+    # report under use_flash)
+    t = time.time()
+    f32_times = flash_timings(attn_ops, dev, gen, tb, 1024, width, heads, torch.float32, name)
+    say(f"float32 flash timings at [{tb},1024,{width}]: {time.time() - t:.1f} s")
+    # the lean one at the PGD report's batch
+    t = time.time()
+    pgd_lean_err, pgd_lean_times = lean_f32_check(attn_ops, dev, gen, GATE_SAMPLES, width,
+                                                  heads, name)
+    say(f"float32 lean check at [{GATE_SAMPLES},1024,{width}]: {time.time() - t:.1f} s")
     train_ms = statistics.median(train_info["step_ms"][1:])
     say(f"time train step B={tb} (config_train_fast: bf16, flash, fast_math, full "
         f"width) on {name}: {train_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}, "
@@ -2723,7 +2972,7 @@ def main():
     vol = volumetric_phase(dev, name, trace)
 
     # ---------------------------------------------------------------- quality gate
-    gate_phase(dev)
+    gate = gate_phase(dev)
 
     # ---------------------------------------------------------------- streaming
     stream = streaming_phase(dev, name, smi_line, trace)
@@ -2921,6 +3170,45 @@ def main():
             "shape": f"[1,512,{vw}] f32, {vh} heads of {hd} (the train step under "
                      f"tpu.use_flash" + (", SMOKEPHYS_FUSED_BWD=0)" if "_d" in kname[-4:]
                                          else ")"),
+        })
+    # the float32 lean kernel at the PGD report's [50,1024,512] and the
+    # float32 kernels of the config_polish_f32 train step at [8,1024,512]
+    # (fused and split routes)
+    t_ = pgd_lean_times
+    kernels.append({
+        "name": f"flash_attention_tokens[float32, head_dim={width // heads}]",
+        "route": "cuda",
+        "source": "smokephysai_tpu_torch/csrc/flash_tokens.cu",
+        "replaces": "smokephysai_tpu/ops/pallas/attention.py:521",
+        "launches": gate["flash_pgd"]["counts"]["flash_attention_tokens"],
+        "max_abs_err": pgd_lean_err,
+        "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+        "library_ms": t_[4],
+        "shape": f"[{GATE_SAMPLES},1024,{width}] f32, {heads} heads of {width // heads} "
+                 f"(the PGD report under use_flash)",
+    })
+    for kname, source, line, launches_, path in (
+            ("flash_attention_tokens_fwd_lse", "flash_tokens.cu", 315,
+             polish["counts"]["flash_attention_tokens_fwd_lse"], "a config_polish_f32 step"),
+            ("flash_attention_tokens_bwd", "flash_bwd.cu", 366,
+             polish["counts"]["flash_attention_tokens_bwd"], "a config_polish_f32 step"),
+            ("flash_attention_tokens_bwd_dq", "flash_bwd.cu", 436,
+             polish["split_counts"]["flash_attention_tokens_bwd_dq"],
+             "a config_polish_f32 step under SMOKEPHYS_FUSED_BWD=0"),
+            ("flash_attention_tokens_bwd_dkv", "flash_bwd.cu", 449,
+             polish["split_counts"]["flash_attention_tokens_bwd_dkv"],
+             "a config_polish_f32 step under SMOKEPHYS_FUSED_BWD=0")):
+        t_ = f32_times[kname]
+        kernels.append({
+            "name": f"{kname}[float32, head_dim={width // heads}]",
+            "route": "cuda",
+            "source": f"smokephysai_tpu_torch/csrc/{source}",
+            "replaces": f"smokephysai_tpu/ops/pallas/attention.py:{line}",
+            "launches": launches_,
+            "max_abs_err": f32_errs[kname],
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": t_[4],
+            "shape": f"[{tb},1024,{width}] f32, {heads} heads of {width // heads} ({path})",
         })
     say(f"wall: {time.time() - T0:.1f} s")
     say(json.dumps({"kernels": kernels}))

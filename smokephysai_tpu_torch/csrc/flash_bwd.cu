@@ -97,7 +97,11 @@
 // P^T and dS^T 16 each, a tile's dQ hd/2. ptxas (CUDA 12.9) spills only in
 // the fused kernel at head_dim 128: 344 bytes of spill stores and 524 of
 // loads per thread (192-byte stack frame); the dk/dv kernel there and
-// every other instantiation spill nothing.
+// every other instantiation spill nothing. float32 key-tile kernel: K, V 2
+// * 64 * (hd + 4) * 4, two stages of Q, dO, lse, delta, + the tile's dS
+// [QT][68] with DQ (fused: 72 KB at 32, 77 KB at 64, 141 KB at 128); ptxas
+// gives the fused kernel 221 registers at 16 and 255 above, the
+// dk/dv kernel 145 / 235 / 165 / 255, and spills in neither.
 // Tried on the card and dropped, no faster beyond the spread between calls
 // at any head dim: issuing the next tile's S^T and dP^T with this tile's
 // dV and dK (one wait per tile; it ran out of registers at head_dim 128,
@@ -106,9 +110,36 @@
 // formed, or the tile's dQ computed in two 64-column halves (the spill
 // stayed).
 //
-// float32 (for checking the algorithm at full precision): scalar kernels,
-// one thread per key (fused and dk/dv) or per query (dq) of a 64-row tile,
-// the fused one adding dQ with one atomicAdd per value.
+// float32, flash_bwd_f32_kernel<HD, DQ> (DQ: the fused kernel; !DQ: the
+// split route's dk/dv kernel, the same code with the dQ step compiled out,
+// so its dk and dv are the fused kernel's bits). Bound at [8,1024,512], 8
+// heads of 64: 43 GFLOP, 0.261 ms at 165 TFLOP/s (split TF32, tf32.cuh; see
+// flash_tokens.cu for the split and for mma.sync rather than wgmma).
+// - A CTA of four warps, 64 keys (F32_ROWS, tf32.cuh), per (key tile,
+//   head, batch); each warp owns 16 keys. K and V of the tile are
+//   loaded once into shared memory; tiles of 32 queries (64 at head dims up
+//   to 32) of Q and dO, with their lse and delta, stream through two stages
+//   by cp.async (row pitch hd + 4 floats: conflict-free fragment loads).
+//   The 64-key blocks of a head start at different query tiles, so they
+//   add into different dQ rows at once.
+// - Per query tile and warp: S^T = K Q^T and dP^T = V dO^T (K and V split
+//   per k-step from shared memory), then P^T = exp2(S^T * scale * log2(e) -
+//   lse * log2(e)) and dS^T = P^T (dP^T - delta) scale on the fragments;
+//   their C fragments are the A fragments of dV += P^T dO and dK += dS^T Q
+//   as they stand (queries of a k-step in the order (2t, 2t + 1)). Each
+//   head-column tile's sum over the query tile is formed in a fresh
+//   accumulator and added to dK, dV in float32 registers (the tensor cores
+//   truncate as they accumulate: one accumulator over all of L crossed the
+//   1e-5 bound at head_dim 128); dK and dV are written once.
+// - DQ: dS^T goes to shared memory as dS, the tile's dQ = dS K over the
+//   CTA's 64 keys is formed by MMA in units of (16 queries, half the head
+//   columns) spread over the warps, and added into the zeroed float32 dq by
+//   red.global.add.v4.f32, four columns per thread after one exchange in
+//   the quad: one reduction per four values and 64 keys, where the scalar
+//   kernel took an atomicAdd per value. The order of that sum varies from
+//   run to run.
+// The split dq kernel in float32 (flash_bwd_dq_f32_kernel) is still the
+// scalar one: one thread per query of a 64-query tile, FMA products.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +148,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -579,91 +611,226 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---------------------------------------------------------------- float32
 
-constexpr int BT = 64;  // keys per block and queries per tile
+constexpr int BT = 64;  // the dq kernel's queries per block and keys per tile
 
-// the float32 kernels' shared memory
+// the float32 dq kernel's shared memory: Q dO K V rows of HD + 1 floats
 template <int HD>
 struct Geo {
-  // K V Q dO rows of HD + 1 floats, dS rows of BT + 1
   static constexpr int P32 = HD + 1;
-  static constexpr int PDS = BT + 1;
-  static constexpr size_t SMEM_F32 = (4 * BT * P32 + BT * PDS) * sizeof(float);
-  // the dkv kernel leaves out the float32 dS
-  static constexpr size_t SMEM_DKV_F32 = SMEM_F32 - BT * PDS * sizeof(float);
   static constexpr size_t SMEM_DQ_F32 = 4 * BT * P32 * sizeof(float);
 };
 
-// float32: one thread per key of the block's 64-key tile (DQ = false: the
-// dkv kernel)
-template <int HD, bool DQ>
-__global__ void __launch_bounds__(BT)
-flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* dq,
-                     float* __restrict__ dk, float* __restrict__ dv, int L,
-                     int D, float scale) {
-  constexpr int P32 = Geo<HD>::P32;  // row pitch, one bank apart
-  constexpr int PDS = Geo<HD>::PDS;  // dS row pitch
-  extern __shared__ __align__(16) float smem32[];
-  float* sK = smem32;
-  float* sV = sK + BT * P32;
-  float* sQ = sV + BT * P32;
-  float* sdO = sQ + BT * P32;
-  float* sDS = sdO + BT * P32;  // [query][key]
-  const int H = gridDim.y;
-  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
-  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
-  const int k0 = blockIdx.x * BT;
-  const int t = threadIdx.x;
-  for (int i = t; i < BT * HD; i += BT) {
-    int j = i / HD, c = i % HD;
-    sK[j * P32 + c] = k[base + (size_t)(k0 + j) * D + c];
-    sV[j * P32 + c] = v[base + (size_t)(k0 + j) * D + c];
+// the float32 key-tile kernel (tensor cores): F32_ROWS keys per CTA (four
+// warps of 16 keys), QT-query tiles of Q, dO, lse and delta through two
+// stages
+template <int HD>
+struct F32Kv {
+  static constexpr int QT = HD >= 64 ? 32 : 64;  // queries per streamed tile
+  static constexpr int P = HD + 4;  // row pitch in floats: conflict-free fragment loads
+  static constexpr int QTILE = QT * P;           // floats of a Q or a dO tile
+  static constexpr int STAGE = 2 * QTILE + 2 * QT;  // Q, dO, lse, delta
+  static constexpr int PDS = F32_ROWS + 4;  // row pitch of dS [QT][PDS]
+  // bytes: K and V of the CTA, two stages, and with DQ the tile's dS
+  static constexpr int smem(bool dq) {
+    return 4 * (2 * F32_ROWS * P + 2 * STAGE + (dq ? QT * PDS : 0));
   }
-  float gk[HD], gv[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) gk[c] = gv[c] = 0.0f;
+};
 
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    __syncthreads();
-    for (int i = t; i < BT * HD; i += BT) {
-      int j = i / HD, c = i % HD;
-      sQ[j * P32 + c] = q[base + (size_t)(q0 + j) * D + c];
-      sdO[j * P32 + c] = dout[base + (size_t)(q0 + j) * D + c];
+// float32 (DQ = false: the dkv kernel, the same code without the dQ step).
+// Each warp owns 16 keys: per query tile it forms S^T = K Q^T and dP^T =
+// V dO^T, then P^T and dS^T on the fragments, and dV += P^T dO, dK +=
+// dS^T Q; with DQ the tile's dQ = dS K over the CTA's keys is added into the
+// zeroed float32 dq by red.global.add.v4.f32.
+template <int HD, bool DQ>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* dq, float* __restrict__ dk, float* __restrict__ dv, int L,
+                     int D, float scale, float scale_log2) {
+  using C = F32Kv<HD>;
+  constexpr int QT = C::QT, P = C::P, PDS = C::PDS, KS = HD / 8, NT = QT / 8, HN = HD / 8;
+  constexpr int NWARPS = F32_THREADS / 32;
+  extern __shared__ __align__(16) float smem32[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int H = gridDim.y;
+  const size_t head = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
+  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
+  const int k0 = blockIdx.x * F32_ROWS;
+  float* sK = smem32;  // [F32_ROWS][P]
+  float* sV = sK + F32_ROWS * P;
+  float* ring = sV + F32_ROWS * P;  // stage s at + s * STAGE: Q, dO, lse, delta
+  float* sDS = ring + 2 * C::STAGE;  // DQ: dS [QT][PDS], queries by keys
+  const uint32_t sbase = smem_addr(smem32);
+  const uint32_t sring = sbase + 2 * F32_ROWS * P * 4;
+  const int nq = L / QT;
+  // the query tile order starts at the key block's own tile, so the CTAs of
+  // a head add into different dQ rows at once
+  const int q_first = blockIdx.x % nq;
+  auto load_tile = [&](int i) {  // the i-th query tile of this CTA's order
+    const int qt = (q_first + i) % nq;
+    const uint32_t dst = sring + (i & 1) * C::STAGE * 4;
+    load_rows<HD, P, QT>(dst, q + head + (size_t)qt * QT * D, D);
+    load_rows<HD, P, QT>(dst + C::QTILE * 4, dout + head + (size_t)qt * QT * D, D);
+    load_vec<QT>(dst + 2 * C::QTILE * 4, lse + row_base + qt * QT);
+    load_vec<QT>(dst + (2 * C::QTILE + QT) * 4, delta + row_base + qt * QT);
+    cp_async_commit();
+  };
+  load_rows<HD, P, F32_ROWS>(sbase, k + head + (size_t)k0 * D, D);
+  load_rows<HD, P, F32_ROWS>(sbase + F32_ROWS * P * 4, v + head + (size_t)k0 * D, D);
+  load_tile(0);  // one group with K and V
+
+  float gk[HN][4], gv[HN][4];  // dK, dV of the warp's 16 keys, n-tile = 8 head columns
+#pragma unroll
+  for (int n = 0; n < HN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.0f;
+  const float* kw = sK + (warp * 16 + g) * P + t;  // A fragments: key rows g, g + 8
+  const float* vw = sV + (warp * 16 + g) * P + t;
+
+  for (int i = 0; i < nq; ++i) {
+    if (i + 1 < nq) {
+      load_tile(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int i = 0; i < BT; ++i) {
-      float s = 0.0f, dp = 0.0f;
+    const float* sQ = ring + (i & 1) * C::STAGE;
+    const float* sdO = sQ + C::QTILE;
+    const float* sL = sdO + C::QTILE;
+    const float* sDl = sL + QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x QT queries, n-tile j =
+    // queries 8j..8j+7 (B: Q and dO rows)
+    float st[NT][4], dpt[NT][4];
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        s += sQ[i * P32 + c] * sK[t * P32 + c];
-        dp += sdO[i * P32 + c] * sV[t * P32 + c];
-      }
-      const float pr = expf(s * scale - lse[row_base + q0 + i]);
-      const float ds = pr * (dp - delta[row_base + q0 + i]) * scale;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        gv[c] += pr * sdO[i * P32 + c];
-        gk[c] += ds * sQ[i * P32 + c];
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const float ka[4] = {kw[8 * kk], kw[8 * P + 8 * kk], kw[8 * kk + 4], kw[8 * P + 8 * kk + 4]};
+      const float va[4] = {vw[8 * kk], vw[8 * P + 8 * kk], vw[8 * kk + 4], vw[8 * P + 8 * kk + 4]};
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      split_tf32(ka, kh, kl);
+      split_tf32(va, vh, vl);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* qr = sQ + (8 * j + g) * P + 8 * kk + t;
+        const float* dr = sdO + (8 * j + g) * P + 8 * kk + t;
+        mma3(st[j], kh, kl, qr[0], qr[4]);
+        mma3(dpt[j], vh, vl, dr[0], dr[4]);
       }
-      if constexpr (DQ) sDS[i * PDS + t] = ds;
     }
+
+    // P^T = exp2(S^T scale log2(e) - lse log2(e)) and dS^T = P^T (dP^T -
+    // delta) scale in place: c0, c2 are query 8j + 2t, c1, c3 query 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(sL + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(sDl + 8 * j + 2 * t);
+      const float la = lv.x * LOG2E, lb = lv.y * LOG2E;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(st[j][e], scale_log2, e % 2 ? -lb : -la));
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - (e % 2 ? dl.y : dl.x)) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: k-step j = queries 8j..8j+7 in the
+    // order (2t, 2t + 1), so the n-tiles above are the A fragments as they
+    // stand; B: dO and Q rows 8j + 2t, 8j + 2t + 1. Each n-tile's sum over
+    // the tile's queries is formed in a fresh accumulator and added to dV,
+    // dK in float32 (the tensor cores truncate as they accumulate: summed
+    // over all of L in one accumulator, that bias crossed the 1e-5 bound)
+    uint32_t ph[NT][4], pl[NT][4], dh[NT][4], dl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float pa[4] = {st[j][0], st[j][2], st[j][1], st[j][3]};
+      const float da[4] = {dpt[j][0], dpt[j][2], dpt[j][1], dpt[j][3]};
+      split_tf32(pa, ph[j], pl[j]);
+      split_tf32(da, dh[j], dl[j]);
+    }
+#pragma unroll
+    for (int n = 0; n < HN; ++n) {
+      float tv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, tk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* dr = sdO + (8 * j + 2 * t) * P + 8 * n + g;
+        const float* qr = sQ + (8 * j + 2 * t) * P + 8 * n + g;
+        mma3(tv, ph[j], pl[j], dr[0], dr[P]);
+        mma3(tk, dh[j], dl[j], qr[0], qr[P]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gv[n][e] += tv[e];
+        gk[n][e] += tk[e];
+      }
+    }
+
     if constexpr (DQ) {
+      // dS^T to shared memory as dS [query][key], then the tile's dQ = dS K
+      // over the CTA's keys: units of (16 queries, half the head columns)
+      // spread over the warps, each added by 16-byte reductions
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float* d0 = sDS + (8 * j + 2 * t) * PDS + warp * 16 + g;
+        d0[0] = dpt[j][0];
+        d0[PDS] = dpt[j][1];
+        d0[8] = dpt[j][2];
+        d0[PDS + 8] = dpt[j][3];
+      }
       __syncthreads();
-      // thread t as query row t: its share of dQ from this key tile
-      for (int c = 0; c < HD; ++c) {
-        float acc = 0.0f;
-        for (int j = 0; j < BT; ++j) acc += sDS[t * PDS + j] * sK[j * P32 + c];
-        atomicAdd(dq + base + (size_t)(q0 + t) * D + c, acc);
+      const int qt = (q_first + i) % nq;
+      constexpr int HALF = HN / 2 > 0 ? HN / 2 : 1;  // n-tiles per unit
+      constexpr int UNITS = (QT / 16) * (HN / HALF);
+      static_assert(UNITS % NWARPS == 0, "every warp takes as many units");
+#pragma unroll
+      for (int u0 = 0; u0 < UNITS; u0 += NWARPS) {
+        const int u = u0 + warp, mt = u % (QT / 16), n0 = (u / (QT / 16)) * HALF;
+        float acc[HALF][4];
+#pragma unroll
+        for (int n = 0; n < HALF; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+        const float* ar = sDS + (16 * mt + g) * PDS + t;
+        for (int ks = 0; ks < F32_ROWS / 8; ++ks) {
+          const float a[4] = {ar[8 * ks], ar[8 * PDS + 8 * ks], ar[8 * ks + 4],
+                              ar[8 * PDS + 8 * ks + 4]};
+          uint32_t ah[4], al[4];
+          split_tf32(a, ah, al);
+          const float* br = sK + (8 * ks + t) * P + 8 * n0 + g;  // B: K rows 8ks + t, + 4
+#pragma unroll
+          for (int n = 0; n < HALF; ++n) mma3(acc[n], ah, al, br[8 * n], br[4 * P + 8 * n]);
+        }
+        // one exchange in the quad: even t take row g, columns 2t..2t+3;
+        // odd t row g + 8, columns 2t-2..2t+1
+        const bool odd = t & 1;
+        float* dst = dq + head + (size_t)(qt * QT + 16 * mt + g + (odd ? 8 : 0)) * D +
+                     8 * n0 + 2 * (t & ~1);
+#pragma unroll
+        for (int n = 0; n < HALF; ++n) {
+          const float s0 = odd ? acc[n][0] : acc[n][2], s1 = odd ? acc[n][1] : acc[n][3];
+          const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          red_add_v4_if(dst + 8 * n, odd ? r0 : acc[n][0], odd ? r1 : acc[n][1],
+                        odd ? acc[n][2] : r0, odd ? acc[n][3] : r1, RED);
+        }
       }
     }
+    __syncthreads();  // this stage (and dS) is free
   }
+
+  // dK, dV C fragments: rows (keys) g, g + 8, columns 8n + 2t, + 1
+  const size_t r0 = head + (size_t)(k0 + warp * 16 + g) * D + 2 * t;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    dk[base + (size_t)(k0 + t) * D + c] = gk[c];
-    dv[base + (size_t)(k0 + t) * D + c] = gv[c];
+  for (int n = 0; n < HN; ++n) {
+    *reinterpret_cast<float2*>(dk + r0 + 8 * n) = make_float2(gk[n][0], gk[n][1]);
+    *reinterpret_cast<float2*>(dk + r0 + 8 * D + 8 * n) = make_float2(gk[n][2], gk[n][3]);
+    *reinterpret_cast<float2*>(dv + r0 + 8 * n) = make_float2(gv[n][0], gv[n][1]);
+    *reinterpret_cast<float2*>(dv + r0 + 8 * D + 8 * n) = make_float2(gv[n][2], gv[n][3]);
   }
 }
 
@@ -752,8 +919,7 @@ inline int persistent_grid(long long items, cudaError_t* err) {
 template <int HD, bool DQ>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
-           int B, int L, int D, int heads, float scale, int dtype,
-           cudaStream_t st) {
+           int B, int L, int D, int heads, float scale, int dtype, cudaStream_t st) {
   if (dtype == 0) {
     CUtensorMap maps[4];
     if (!make_maps<HD>(maps, q, k, v, dout, B, L, D, Q_ROWS, KV_ROWS))
@@ -772,13 +938,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         (float*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, L, D, heads, nkt, (int)items,
         scale, (float)((double)scale * 1.4426950408889634));
   } else if (dtype == 1) {
-    constexpr size_t smem = DQ ? Geo<HD>::SMEM_F32 : Geo<HD>::SMEM_DKV_F32;
+    constexpr int smem = F32Kv<HD>::smem(DQ);
     cudaError_t err = allow_smem(flash_bwd_f32_kernel<HD, DQ>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_f32_kernel<HD, DQ><<<dim3(L / BT, heads, B), BT, smem, st>>>(
+    flash_bwd_f32_kernel<HD, DQ><<<dim3(L / F32_ROWS, heads, B), F32_THREADS, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dq, (float*)dk, (float*)dv, L, D, scale);
+        (float*)dq, (float*)dk, (float*)dv, L, D, scale,
+        (float)((double)scale * 1.4426950408889634));
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -872,8 +1039,7 @@ extern "C" int flash_tokens_bwd_dkv(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
                                     void* dk, void* dv, int B, int L, int D,
-                                    int heads, float scale, int dtype,
-                                    void* stream) {
+                                    int heads, float scale, int dtype, void* stream) {
   return by_head_dim(B, L, D, heads, [&](auto hd) {
     return launch<decltype(hd)::value, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
                                               B, L, D, heads, scale, dtype,

@@ -61,13 +61,47 @@
 // float32 p, P is rounded to v's type before P.V, which sums in float32,
 // and lse = m * ln 2 + log(l) with the max m kept in log2 units.
 //
-// float32 (for checking the algorithm at full precision): a scalar FMA
-// kernel, one thread per query row, 64-query and 64-key tiles.
+// float32, flash_f32_kernel<HD, LSE> (the model paths that run in float32:
+// SmokePhysNet3D under use_flash, the float32 2D train step, the PGD report
+// under use_flash). Bound at [8,1024,512], 8 heads of 64: 17.2 GFLOP, 0.104
+// ms at 165 TFLOP/s, the rate of float32-accurate products as three TF32
+// products (csrc/tf32.cuh); a float32 FMA kernel tops out at 67 TFLOP/s.
+// - Every product on the tensor cores in split TF32 (mma.sync m16n8k8, hi
+//   and lo parts of each operand, small terms first): a single TF32 pass
+//   keeps ~3 digits and breaks the 1e-5 bound; the split keeps ~2^-21.
+// - mma.sync and not wgmma: TF32 wgmma takes only K-major operands from
+//   shared memory, so V would need a transpose and K, V^T hi/lo copies in
+//   shared memory; with mma.sync each fragment is split in registers. A
+//   wgmma variant is the next step if this one sits far from its bound.
+// - A CTA of four warps, 64 query rows (F32_ROWS, tf32.cuh), per (query
+//   tile, head, batch); each warp owns 16 query rows. CTAs of 32 and 16
+//   rows, which give every SM a CTA at [1,512,256], were slower on the card
+//   at both measured shapes (PERF.md). Tiles of 64 keys (32 at
+//   head_dim 128) of K and V stream through two stages of padded shared
+//   memory (row pitch hd + 4 floats: conflict-free fragment loads) by
+//   cp.async.cg 16-byte copies, the next tile's in flight while this one is
+//   multiplied.
+// - Q is split once into registers (at head_dim 128 it stays in shared
+//   memory and is split per tile: 255 registers otherwise). S = Q K^T, then
+//   the online softmax on the accumulator fragment (row max and sum across
+//   the quad by shuffles, exp2 of one FMA with scale * log2(e) folded in).
+//   S's C fragment of 8 keys is P's A fragment of the next product as it
+//   stands, with the keys of the k-step taken in the order (2t, 2t + 1)
+//   (tf32.cuh): no shuffle and no shared memory between the two products.
+// - Each tile's P V is formed in a fresh accumulator and added to O in
+//   float32 (O = O c + P V, one FMA): the tensor cores truncate as they
+//   accumulate, and summed over L = 1024 keys in one accumulator that bias
+//   reached 1.6e-5 of the output, past the 1e-5 bound. O is written once,
+//   as acc / l; lse = m * ln 2 + log(l), as the bf16 kernel.
+// - The lean and LSE instantiations are the same code with the lse store
+//   compiled in: the same output bits. No atomics: the same bits every run.
 //
 // Head dim: a template parameter, instantiated for 16, 32, 64 and 128 (the
 // launcher picks it from D / heads). Shared memory per CTA, bf16: Q 128*hd*2
 // plus 2 * stages * 128*hd*2 for the ring (28 KB at 16, 56 KB at 32, 112 KB
-// at 64, 160 KB at 128); float32: 2 * 64 * hd * 4 (32 KB at 64).
+// at 64, 160 KB at 128); float32: two stages of K and V, 4 * 64 * (hd + 4)
+// * 4 (20 KB at 16, 36 KB at 32, 68 KB at 64), at 128 two stages of 32 keys
+// and Q (99 KB).
 //
 // The Hopper primitives (mbarriers, TMA, wgmma descriptors and products,
 // the tensor-map encoder) are in hopper.cuh, shared with flash_bwd.cu.
@@ -80,6 +114,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -349,63 +384,184 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---------------------------------------------------------------- float32
+// ---------------------------------------------------------------- float32 (tensor cores)
 
-constexpr int F32_BQ = 64;  // query rows per block, one per thread
-constexpr int F32_BK = 64;  // keys per tile
+template <int HD>
+struct F32Cfg {
+  static constexpr int BK = HD == 128 ? 32 : 64;  // keys per K/V tile
+  static constexpr int P = HD + 4;  // row pitch in floats: conflict-free fragment loads
+  static constexpr int TILE = BK * P;  // floats of one K or V tile
+  // Q split once into registers; at 128 read from shared memory and split
+  // per tile, which keeps the kernel inside 255 registers
+  static constexpr bool Q_SPLIT = HD <= 64;
+  // bytes: Q at 128, then K and V in two stages
+  static constexpr int SMEM = 4 * ((Q_SPLIT ? 0 : F32_ROWS * P) + 4 * TILE);
+};
 
+// One CTA of four warps per (query tile of F32_ROWS, head, batch); each warp
+// owns 16 query rows, the thread rows r0 and r0 + 8 of the fragments.
 template <int HD, bool LSE>
-__global__ void __launch_bounds__(F32_BQ)
+__global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int L, int D, float scale) {
-  // K and V tiles [F32_BK][HD] each, dynamic: 64 KB at head_dim 128
+                 float* __restrict__ lse, int L, int D, float scale_log2) {
+  using C = F32Cfg<HD>;
+  constexpr int BK = C::BK, P = C::P, KS = HD / 8, NT = BK / 8;
   extern __shared__ __align__(16) float smem32[];
-  float (*sK)[HD] = reinterpret_cast<float (*)[HD]>(smem32);
-  float (*sV)[HD] = reinterpret_cast<float (*)[HD]>(smem32 + F32_BK * HD);
-  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
-  const int row = blockIdx.x * F32_BQ + threadIdx.x;
-  float qr[HD], acc[HD];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t head = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
+  const int r0 = blockIdx.x * F32_ROWS + warp * 16 + g;
+  const int nk = L / BK;
+  const float* sQ = smem32;  // Q_SPLIT: unused
+  float* ring = smem32 + (C::Q_SPLIT ? 0 : F32_ROWS * P);  // stage s at + 2 s TILE: K, V
+  const uint32_t sring = smem_addr(ring);
+  auto load_kv = [&](int j) {
+    const uint32_t dst = sring + (j & 1) * 2 * C::TILE * 4;
+    load_rows<HD, P, BK>(dst, k + head + (size_t)j * BK * D, D);
+    load_rows<HD, P, BK>(dst + C::TILE * 4, v + head + (size_t)j * BK * D, D);
+    cp_async_commit();
+  };
+  if constexpr (!C::Q_SPLIT)  // in the first group
+    load_rows<HD, P, F32_ROWS>(smem_addr(smem32), q + head + (size_t)blockIdx.x * F32_ROWS * D,
+                               D);
+  load_kv(0);
+
+  // Q's A fragment of k-step kk (head columns 8kk..8kk+7): split once, or
+  // read from shared memory and split per tile
+  uint32_t qh[C::Q_SPLIT ? KS : 1][4], ql[C::Q_SPLIT ? KS : 1][4];
+  if constexpr (C::Q_SPLIT) {
+    const float* q0 = q + head + (size_t)r0 * D;
+    const float* q1 = q0 + (size_t)8 * D;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    qr[c] = q[base + (size_t)row * D + c];
-    acc[c] = 0.0f;
+    for (int kk = 0; kk < KS; ++kk) {
+      const float qf[4] = {q0[8 * kk + t], q1[8 * kk + t], q0[8 * kk + t + 4],
+                           q1[8 * kk + t + 4]};
+      split_tf32(qf, qh[kk], ql[kk]);
+    }
   }
-  float m = NEG_INF, l = 0.0f;
-  for (int k0 = 0; k0 < L; k0 += F32_BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < F32_BK * HD; i += blockDim.x) {
-      int j = i / HD, c = i % HD;
-      sK[j][c] = k[base + (size_t)(k0 + j) * D + c];
-      sV[j][c] = v[base + (size_t)(k0 + j) * D + c];
+  const float* qw = sQ + (warp * 16 + g) * P + t;
+
+  float acc[HD / 8][4];  // O, n-tile n = head columns 8n..8n+7
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;  // m in log2 units
+
+  for (int j = 0; j < nk; ++j) {
+    // tile j + 1 loads while tile j is multiplied: its stage was freed by
+    // the barrier that closed tile j - 1
+    if (j + 1 < nk) {
+      load_kv(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    float s[F32_BK];
-    float mx = NEG_INF;
-    for (int j = 0; j < F32_BK; ++j) {
-      float dot = 0.0f;
+    const float* sK = ring + (j & 1) * 2 * C::TILE;
+    const float* sV = sK + C::TILE;
+
+    // S = Q K^T: n-tile i = keys 8i..8i+7 of the tile (B: K rows)
+    float s[NT][4];
 #pragma unroll
-      for (int c = 0; c < HD; ++c) dot += qr[c] * sK[j][c];
-      s[j] = dot * scale;
-      mx = fmaxf(mx, s[j]);
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (C::Q_SPLIT) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = qh[kk][e];
+          al[e] = ql[kk][e];
+        }
+      } else {
+        const float qf[4] = {qw[8 * kk], qw[8 * P + 8 * kk], qw[8 * kk + 4],
+                             qw[8 * P + 8 * kk + 4]};
+        split_tf32(qf, ah, al);
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const float* kr = sK + (8 * i + g) * P + 8 * kk + t;
+        mma3(s[i], ah, al, kr[0], kr[4]);
+      }
     }
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float sum = 0.0f;
+
+    // the online softmax on the fragment: row max and sum across the quad,
+    // exp2 with scale * log2(e) folded into one FMA
+    float x0 = NEG_INF, x1 = NEG_INF;
 #pragma unroll
-    for (int c = 0; c < HD; ++c) acc[c] *= corr;
-    for (int j = 0; j < F32_BK; ++j) {
-      const float p = expf(s[j] - m_new);
-      sum += p;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) acc[c] += p * sV[j][c];
+    for (int i = 0; i < NT; ++i) {
+      x0 = fmaxf(x0, fmaxf(s[i][0], s[i][1]));
+      x1 = fmaxf(x1, fmaxf(s[i][2], s[i][3]));
     }
-    l = l * corr + sum;
-    m = m_new;
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+    const float n0 = fmaxf(m0, x0 * scale_log2), n1 = fmaxf(m1, x1 * scale_log2);
+    const float c0 = ex2(m0 - n0), c1 = ex2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      s[i][0] = ex2(fmaf(s[i][0], scale_log2, -n0));
+      s[i][1] = ex2(fmaf(s[i][1], scale_log2, -n0));
+      s[i][2] = ex2(fmaf(s[i][2], scale_log2, -n1));
+      s[i][3] = ex2(fmaf(s[i][3], scale_log2, -n1));
+      sum0 += s[i][0] + s[i][1];
+      sum1 += s[i][2] + s[i][3];
+    }
+    l0 = l0 * c0 + sum0;  // summed across the quad once, at the end
+    l1 = l1 * c1 + sum1;
+
+    // O = O c + P V: the tile's P V in a fresh accumulator, added to O in
+    // float32 (the tensor cores truncate as they accumulate: summed over all
+    // of L in one accumulator, that bias crossed the 1e-5 bound at L = 1024).
+    // k-step i = keys 8i..8i+7 in the order (2t, 2t + 1), so S's n-tile i is
+    // P's A fragment as it stands; B: V rows 8i + 2t, 8i + 2t + 1
+    float pv[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const float pa[4] = {s[i][0], s[i][2], s[i][1], s[i][3]};
+      uint32_t ph[4], pl[4];
+      split_tf32(pa, ph, pl);
+      const float* vr = sV + (8 * i + 2 * t) * P + g;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) mma3(pv[n], ph, pl, vr[8 * n], vr[P + 8 * n]);
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      acc[n][0] = fmaf(acc[n][0], c0, pv[n][0]);
+      acc[n][1] = fmaf(acc[n][1], c0, pv[n][1]);
+      acc[n][2] = fmaf(acc[n][2], c1, pv[n][2]);
+      acc[n][3] = fmaf(acc[n][3], c1, pv[n][3]);
+    }
+    __syncthreads();  // every warp is done with this stage
   }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  float* o0 = o + head + (size_t)r0 * D + 2 * t;
+  float* o1 = o0 + (size_t)8 * D;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) o[base + (size_t)row * D + c] = acc[c] / l;
-  if (LSE) lse[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * L + row] = m + logf(l);
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0] / l0, acc[n][1] / l0);
+    *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2] / l1, acc[n][3] / l1);
+  }
+  if (LSE && t == 0) {
+    float* dst = lse + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * L;
+    dst[r0] = m0 * LN2 + logf(l0);
+    dst[r0 + 8] = m1 * LN2 + logf(l1);
+  }
 }
 
 // ---------------------------------------------------------------- launchers
@@ -436,17 +592,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
 
 template <int HD, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int L, int heads, int D, float scale, int dtype,
-           cudaStream_t st) {
+           int B, int L, int heads, int D, float scale, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch_bf16<HD, LSE>(q, k, v, o, lse, B, L, heads, D, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = 2 * F32_BK * HD * sizeof(float);
+  constexpr int smem = F32Cfg<HD>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_f32_kernel<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(L / F32_BQ, heads, B);
-  flash_f32_kernel<HD, LSE><<<grid, F32_BQ, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, L, D, scale);
+  dim3 grid(L / F32_ROWS, heads, B);
+  flash_f32_kernel<HD, LSE><<<grid, F32_THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, L, D,
+      (float)((double)scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
 
@@ -470,8 +626,7 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 // lse: null for the lean (serving) kernel, else [B, heads, L] float32.
 extern "C" int flash_tokens_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int L, int D,
-                                int heads, float scale, int dtype,
-                                void* stream) {
+                                int heads, float scale, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || L % 64 != 0 || heads <= 0 || D % heads != 0 ||
       B > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;

@@ -19,7 +19,9 @@ probabilities are cast to v's type before P.V, which accumulates in float32.
   package's `flash_attention`), through the lean kernel with one head.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version for CPU tensors only.
+version for CPU tensors only. The float32 forward and the float32 fused and
+dk/dv backward run on the tensor cores in split TF32 (csrc/tf32.cuh), one
+CTA of 64 rows per (row tile, head, batch).
 """
 from __future__ import annotations
 

@@ -453,6 +453,38 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, shape):
         assert float(rel) <= bound, (name, float(rel))
 
 
+# the float32 kernels at the model paths' shapes: the 3D trunk at B = 1
+# ([1,512,256], 8 heads of 32) and the float32 2D train step and PGD report
+# ([8,1024,512], 8 heads of 64)
+F32_MODEL_SHAPES = [(1, 512, 256, 8), (8, 1024, 512, 8)]
+
+
+@pytest.mark.parametrize("batch,length,width,heads", F32_MODEL_SHAPES,
+                         ids=["B1-L512-hd32", "B8-L1024-hd64"])
+def test_flash_f32_kernels_at_model_shapes(cuda, batch, length, width, heads):
+    """The float32 lean and LSE forwards and the fused backward (split TF32
+    on the tensor cores) at the shapes the model paths launch, with the
+    float32 bounds: out atol 1e-5, lse atol 1e-4, ||d||/||ref|| <= 1e-5 for
+    each of dq, dk, dv. The lean output is the LSE forward's to the bit, and
+    a second call of each forward gives the same bits."""
+    g = torch.Generator().manual_seed(300 + length)
+    q, k, v, go = (torch.randn(batch, length, width, generator=g).to(cuda)
+                   for _ in range(4))
+    lean = attn_ops.flash_attention_tokens(q, k, v, heads)
+    out, lse = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    assert torch.equal(lean, out)
+    assert torch.equal(lean, attn_ops.flash_attention_tokens(q, k, v, heads))
+    out2, lse2 = attn_ops.flash_attention_tokens_fwd_lse(q, k, v, heads)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    rout, rlse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads)
+    torch.testing.assert_close(out, rout, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    grads = attn_ops.flash_attention_tokens_bwd(q, k, v, rout, rlse, go, heads)
+    refs = attn_ops.flash_attention_tokens_bwd_reference(q, k, v, rout, rlse, go, heads)
+    for name, a, b in zip("qkv", grads, refs):
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+
+
 def test_flash_training_gradient_reaches_q_proj(cuda):
     """ChaosAttention with use_flash=True on the card: the attention output
     has a grad_fn, q_proj (and every other projection) gets a nonzero
