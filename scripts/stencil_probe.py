@@ -5,8 +5,9 @@
     python3 scripts/stencil_probe.py [--root DIR] [--plans] [--step] [--runs N]
 
 Prints the card's name and power limit, then one JSON line per shape and
-tree. Jacobi: `jacobi_pressure` at [1,256,256], [8,256,256], [1,512,512]
-and [1,2048,2048], 20 sweeps; diffusion: a solver step's three staggered
+tree. Jacobi: `jacobi_pressure` at [1,256,256], [8,256,256], [1,512,512],
+[1,1024,1024] and [1,2048,2048], 20 sweeps (the last two in the band
+mode); diffusion: a solver step's three staggered
 256^2 fields (u [E,257,256], v [E,256,257], density [E,256,256]) at 1 and
 8 episodes. Each line has the CUDA-event median ms through the wrappers
 (`runs` calls, default 20), the device time of the kernels the call
@@ -19,9 +20,9 @@ another name, and its own sources are built into its own `_build/`; each
 shape is then timed on both trees in turns: DIR, this tree, this tree, DIR.
 The other tree's diffusion is the solver's call of it: one `diffuse` for
 each field (three launches), or its `diffuse_fields` where it has one.
-With `--plans`, each Jacobi shape that takes the cluster mode is also
-timed under every other plan of this tree's `plan_candidates` and the
-tiled mode, through the wrapper's own launcher, at 0 and 20 sweeps (the
+With `--plans`, each Jacobi shape is also timed under every other plan of
+this tree's `plan_candidates` (the cluster mode) or `band_candidates` (the
+band mode), through the wrapper's own launcher, at 0 and 20 sweeps (the
 ms a launch of a CUDA graph of 20 launches, replayed: the slope is the
 time a sweep, the rest the load, the store and the launch), each checked
 bit-equal to the default plan. With `--step`, it also times the vorticity
@@ -43,7 +44,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402  (the timers)
 
-JACOBI_SHAPES = ((1, 256, 256), (8, 256, 256), (1, 512, 512), (1, 2048, 2048))
+JACOBI_SHAPES = ((1, 256, 256), (8, 256, 256), (1, 512, 512), (1, 1024, 1024),
+                 (1, 2048, 2048))
 EPISODES = (1, 8)
 GRID = 256
 DT, VISC, ITERS, EPS = 0.01, 0.001, 20, 2.0  # config_256_vorticity.yaml's step
@@ -163,15 +165,17 @@ def main():
     for shape in JACOBI_SHAPES:
         p = (0.1 * torch.randn(*shape, generator=gen)).to(dev)
         div = torch.randn(*shape, generator=gen).to(dev)
-        plan = this.jacobi.launch_plan(*shape, device=dev)
+        plan = this.jacobi.launch_plan(*shape, device=dev, num_iters=ITERS)
         in_turns(trees, lambda t: (lambda: t.jacobi.jacobi_pressure(p, div, ITERS)), args.runs,
                  {"kernel": "jacobi_pressure", "shape": list(shape), "sweeps": ITERS,
                   "plan": plan.describe()})
-        if args.plans and plan.mode == "cluster":
+        if args.plans:
             card = this.jacobi.card_active_clusters(torch.cuda.current_device())
             want = this.jacobi.jacobi_pressure(p, div, ITERS)
             rows = {}
-            for alt in [plan, *this.jacobi.plan_candidates(*shape, card), this.jacobi.TILED]:
+            others = (this.jacobi.plan_candidates(*shape, card) if plan.mode == "cluster" else
+                      this.jacobi.band_candidates(*shape, ITERS, card))
+            for alt in [plan, *others]:
                 if alt.describe() in rows:
                     continue
                 fns = {k: (lambda k=k: this.jacobi._launch(p, div, k, alt)) for k in (0, ITERS)}

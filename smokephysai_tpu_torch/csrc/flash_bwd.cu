@@ -101,7 +101,10 @@
 // * 64 * (hd + 4) * 4, two stages of Q, dO, lse, delta, + the tile's dS
 // [QT][68] with DQ (fused: 72 KB at 32, 77 KB at 64, 141 KB at 128); ptxas
 // gives the fused kernel 221 registers at 16 and 255 above, the
-// dk/dv kernel 145 / 235 / 165 / 255, and spills in neither.
+// dk/dv kernel 145 / 235 / 165 / 255, and spills in neither. float32 dq
+// kernel: two stages of K, V (4 * BK * (hd + 4) * 4) and Q, dO where they
+// are read from shared memory: 20 KB at 16, 36 KB at 32, 85 KB at 64, 132
+// KB at 128.
 // Tried on the card and dropped, no faster beyond the spread between calls
 // at any head dim: issuing the next tile's S^T and dP^T with this tile's
 // dV and dK (one wait per tile; it ran out of registers at head_dim 128,
@@ -138,8 +141,22 @@
 //   the quad: one reduction per four values and 64 keys, where the scalar
 //   kernel took an atomicAdd per value. The order of that sum varies from
 //   run to run.
-// The split dq kernel in float32 (flash_bwd_dq_f32_kernel) is still the
-// scalar one: one thread per query of a 64-query tile, FMA products.
+// float32 split dq, flash_bwd_dq_f32_kernel<HD> (no atomics: its dq is the
+// same bits on every run, and each batch element's is that of a call on it
+// alone). Bound at [8,1024,512]: 6*B*H*L^2*hd = 25.8 GFLOP, 0.156 ms at
+// 165 TFLOP/s. The float32 forward's layout with a third product:
+// - A CTA of four warps, 64 queries (F32_ROWS), per (query tile, head,
+//   batch); each warp owns 16 queries. Q and dO are split once into
+//   registers (Q up to head_dim 64, dO up to 32; above that read from
+//   shared memory and split per tile, inside 255 registers); each row's
+//   lse and delta are held in registers. Tiles of 64 keys (32 at head_dim
+//   128) of K and V stream through two cp.async stages (pitch hd + 4).
+// - Per key tile and warp: S = Q K^T and dP = dO V^T, then P = exp2(S *
+//   scale * log2(e) - lse * log2(e)) and dS = P (dP - delta) scale on the
+//   fragments; dS's C fragment is the A fragment of dQ += dS K as it
+//   stands (keys of a k-step in the order (2t, 2t + 1), K's rows read as B
+//   from the tile that S read). Each tile's dS K is formed in a fresh
+//   accumulator and added to dQ in float32 registers; dQ is written once.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -611,13 +628,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---------------------------------------------------------------- float32
 
-constexpr int BT = 64;  // the dq kernel's queries per block and keys per tile
+constexpr int BT = 64;  // L must be a multiple of it (a float32 CTA's rows)
 
-// the float32 dq kernel's shared memory: Q dO K V rows of HD + 1 floats
+// the float32 dq kernel (tensor cores): F32_ROWS queries per CTA (four
+// warps of 16 queries), BK-key tiles of K and V through two stages
 template <int HD>
-struct Geo {
-  static constexpr int P32 = HD + 1;
-  static constexpr size_t SMEM_DQ_F32 = 4 * BT * P32 * sizeof(float);
+struct F32Dq {
+  static constexpr int BK = HD == 128 ? 32 : 64;  // keys per K/V tile
+  static constexpr int P = HD + 4;  // row pitch in floats: conflict-free fragment loads
+  static constexpr int TILE = BK * P;  // floats of one K or V tile
+  // Q and dO split once into registers where they fit (Q to head_dim 64, dO
+  // to 32), else read from shared memory and split per tile: the kernel
+  // stays inside 255 registers
+  static constexpr bool Q_REG = HD <= 64;
+  static constexpr bool DO_REG = HD <= 32;
+  // bytes: Q and dO where not in registers, then K and V in two stages
+  static constexpr int SMEM =
+      4 * ((Q_REG ? 0 : F32_ROWS * P) + (DO_REG ? 0 : F32_ROWS * P) + 4 * TILE);
 };
 
 // the float32 key-tile kernel (tensor cores): F32_ROWS keys per CTA (four
@@ -834,60 +861,172 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// float32 dq: one thread per query of the block's 64-query tile
-template <int HD>
-__global__ void __launch_bounds__(BT)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dq, int L, int D, float scale) {
-  constexpr int P32 = Geo<HD>::P32;  // row pitch, one bank apart
-  extern __shared__ __align__(16) float smem32[];
-  float* sQ = smem32;
-  float* sdO = sQ + BT * P32;
-  float* sK = sdO + BT * P32;
-  float* sV = sK + BT * P32;
-  const int H = gridDim.y;
-  const size_t base = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
-  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
-  const int q0 = blockIdx.x * BT;
-  const int t = threadIdx.x;
-  for (int i = t; i < BT * HD; i += BT) {
-    int j = i / HD, c = i % HD;
-    sQ[j * P32 + c] = q[base + (size_t)(q0 + j) * D + c];
-    sdO[j * P32 + c] = dout[base + (size_t)(q0 + j) * D + c];
-  }
-  const float lse_t = lse[row_base + q0 + t], delta_t = delta[row_base + q0 + t];
-  float gq[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) gq[c] = 0.0f;
+// A warp's A fragment of k-step kk (head columns 8kk..8kk+7) of a 16-row
+// block, split: `w` points at the thread's row g, column t, and rows are
+// `pitch` floats apart (shared or global memory)
+__device__ __forceinline__ void split_rows(const float* w, int pitch, int kk,
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* w8 = w + (size_t)8 * pitch;
+  const float x[4] = {w[8 * kk], w8[8 * kk], w[8 * kk + 4], w8[8 * kk + 4]};
+  split_tf32(x, hi, lo);
+}
 
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    __syncthreads();
-    for (int i = t; i < BT * HD; i += BT) {
-      int j = i / HD, c = i % HD;
-      sK[j * P32 + c] = k[base + (size_t)(k0 + j) * D + c];
-      sV[j * P32 + c] = v[base + (size_t)(k0 + j) * D + c];
-    }
-    __syncthreads();
-    for (int j = 0; j < BT; ++j) {
-      float s = 0.0f, dp = 0.0f;
+// float32 dq (the split route): query-stationary, the float32 forward's
+// layout with a third product. Each warp owns 16 queries, the thread rows r0
+// and r0 + 8 of the fragments; per key tile it forms S = Q K^T and dP = dO
+// V^T, then P and dS on the fragments, and dQ += dS K. No atomics: dq is
+// written once.
+template <int HD>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int L, int D, float scale,
+                        float scale_log2) {
+  using C = F32Dq<HD>;
+  constexpr int BK = C::BK, P = C::P, KS = HD / 8, NT = BK / 8, HN = HD / 8;
+  extern __shared__ __align__(16) float smem32[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int H = gridDim.y;
+  const size_t head = (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
+  const size_t row_base = ((size_t)blockIdx.z * H + blockIdx.y) * L;
+  const int q0 = blockIdx.x * F32_ROWS;
+  const int r0 = q0 + warp * 16 + g;
+  const int nk = L / BK;
+  float* sQ = smem32;  // Q_REG: unused
+  float* sdO = sQ + (C::Q_REG ? 0 : F32_ROWS * P);  // DO_REG: unused
+  float* ring = sdO + (C::DO_REG ? 0 : F32_ROWS * P);  // stage s at + 2 s TILE: K, V
+  const uint32_t sring = smem_addr(ring);
+  auto load_kv = [&](int j) {
+    const uint32_t dst = sring + (j & 1) * 2 * C::TILE * 4;
+    load_rows<HD, P, BK>(dst, k + head + (size_t)j * BK * D, D);
+    load_rows<HD, P, BK>(dst + C::TILE * 4, v + head + (size_t)j * BK * D, D);
+    cp_async_commit();
+  };
+  // Q and dO where they live in shared memory: in the first group
+  if constexpr (!C::Q_REG)
+    load_rows<HD, P, F32_ROWS>(smem_addr(sQ), q + head + (size_t)q0 * D, D);
+  if constexpr (!C::DO_REG)
+    load_rows<HD, P, F32_ROWS>(smem_addr(sdO), dout + head + (size_t)q0 * D, D);
+  load_kv(0);
+
+  // Q's and dO's A fragments, split once where they are held in registers
+  uint32_t qh[C::Q_REG ? KS : 1][4], ql[C::Q_REG ? KS : 1][4];
+  uint32_t oh[C::DO_REG ? KS : 1][4], ol[C::DO_REG ? KS : 1][4];
+  const float* qg = q + head + (size_t)r0 * D + t;
+  const float* og = dout + head + (size_t)r0 * D + t;
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        s += sQ[t * P32 + c] * sK[j * P32 + c];
-        dp += sdO[t * P32 + c] * sV[j * P32 + c];
-      }
-      const float pr = expf(s * scale - lse_t);
-      const float ds = pr * (dp - delta_t) * scale;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) gq[c] += ds * sK[j * P32 + c];
-    }
+  for (int kk = 0; kk < KS; ++kk) {
+    if constexpr (C::Q_REG) split_rows(qg, D, kk, qh[kk], ql[kk]);
+    if constexpr (C::DO_REG) split_rows(og, D, kk, oh[kk], ol[kk]);
   }
+  const float* qw = sQ + (warp * 16 + g) * P + t;
+  const float* ow = sdO + (warp * 16 + g) * P + t;
+  // the rows' lse (in log2 units) and delta
+  const float la = lse[row_base + r0] * LOG2E, lb = lse[row_base + r0 + 8] * LOG2E;
+  const float da = delta[row_base + r0], db = delta[row_base + r0 + 8];
+
+  float acc[HN][4];  // dQ, n-tile n = head columns 8n..8n+7
 #pragma unroll
-  for (int c = 0; c < HD; ++c) dq[base + (size_t)(q0 + t) * D + c] = gq[c];
+  for (int n = 0; n < HN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int j = 0; j < nk; ++j) {
+    // tile j + 1 loads while tile j is multiplied: its stage was freed by
+    // the barrier that closed tile j - 1
+    if (j + 1 < nk) {
+      load_kv(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = ring + (j & 1) * 2 * C::TILE;
+    const float* sV = sK + C::TILE;
+
+    // S = Q K^T and dP = dO V^T: n-tile i = keys 8i..8i+7 of the tile (B:
+    // K and V rows)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4], bh[4], bl[4];
+      if constexpr (C::Q_REG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = qh[kk][e];
+          al[e] = ql[kk][e];
+        }
+      } else {
+        split_rows(qw, P, kk, ah, al);
+      }
+      if constexpr (C::DO_REG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bh[e] = oh[kk][e];
+          bl[e] = ol[kk][e];
+        }
+      } else {
+        split_rows(ow, P, kk, bh, bl);
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const float* kr = sK + (8 * i + g) * P + 8 * kk + t;
+        const float* vr = sV + (8 * i + g) * P + 8 * kk + t;
+        mma3(s[i], ah, al, kr[0], kr[4]);
+        mma3(dp[i], bh, bl, vr[0], vr[4]);
+      }
+    }
+
+    // P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - delta) scale
+    // in place of dP: c0, c1 are query row r0, c2, c3 row r0 + 8
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[i][e], scale_log2, e < 2 ? -la : -lb));
+        dp[i][e] = p * (dp[i][e] - (e < 2 ? da : db)) * scale;
+      }
+
+    // dQ += dS K: k-step i = keys 8i..8i+7 in the order (2t, 2t + 1), so dS's
+    // n-tile i is the A fragment as it stands; B: K rows 8i + 2t, 8i + 2t +
+    // 1 of the tile that S read. The tile's sum is formed in a fresh
+    // accumulator and added to dQ in float32 (the tensor cores truncate as
+    // they accumulate: summed over all of L in one accumulator, that bias
+    // crossed the 1e-5 bound at L = 1024)
+    float tq[HN][4];
+#pragma unroll
+    for (int n = 0; n < HN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tq[n][e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const float a[4] = {dp[i][0], dp[i][2], dp[i][1], dp[i][3]};
+      uint32_t dh[4], dl[4];
+      split_tf32(a, dh, dl);
+      const float* kr = sK + (8 * i + 2 * t) * P + g;
+#pragma unroll
+      for (int n = 0; n < HN; ++n) mma3(tq[n], dh, dl, kr[8 * n], kr[P + 8 * n]);
+    }
+#pragma unroll
+    for (int n = 0; n < HN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += tq[n][e];
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // dQ C fragments: rows r0, r0 + 8, columns 8n + 2t, + 1
+  float* d0 = dq + head + (size_t)r0 * D + 2 * t;
+  float* d1 = d0 + (size_t)8 * D;
+#pragma unroll
+  for (int n = 0; n < HN; ++n) {
+    *reinterpret_cast<float2*>(d0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(d1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+  }
 }
 
 template <typename Kernel>
@@ -974,13 +1113,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
         (__nv_bfloat16*)dq, L, D, heads, nq, (int)items, scale,
         (float)((double)scale * 1.4426950408889634));
   } else if (dtype == 1) {
-    constexpr size_t smem = Geo<HD>::SMEM_DQ_F32;
+    constexpr int smem = F32Dq<HD>::SMEM;
     cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<HD>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32_kernel<HD><<<dim3(L / BT, heads, B), BT, smem, st>>>(
+    flash_bwd_dq_f32_kernel<HD><<<dim3(L / F32_ROWS, heads, B), F32_THREADS, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dq, L, D, scale);
+        (float*)dq, L, D, scale, (float)((double)scale * 1.4426950408889634));
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
-// Warm-started zero-Dirichlet Jacobi sweeps of the pressure Poisson equation,
-// all sweeps of a call in one launch: one thread-block cluster per episode
-// with the episode in shared memory where it fits, else tiled over the grid.
+// Warm-started zero-Dirichlet Jacobi sweeps of the pressure Poisson equation:
+// one thread-block cluster per episode with the episode in shared memory
+// where it fits (all sweeps in one launch), else one cluster per band of
+// rows padded by halo rows (one launch per pass of up to `halo` sweeps).
 //
 // Replaces: smokephysai_tpu/ops/pallas/jacobi.py, jacobi_pressure_pallas, in
 // both its forms: the whole grid in VMEM (_jacobi_kernel) and the row stripes
@@ -18,7 +19,7 @@
 //
 // Cluster mode (every grid whose stripes fit 227 KB a CTA at some cluster
 // size of at most 16: 256^2 at 4 CTAs or more, 512^2 at 15 or 16, not
-// 1024^2): one cluster per episode, a row stripe of `rows` rows per CTA
+// 1024^2): one cluster per episode (one band of the whole grid), a row stripe of `rows` rows per CTA
 // (the last CTA what is left). Each CTA keeps two planes of p, (rows + 2)
 // x w floats with a halo row above and below, for all the sweeps: HBM is
 // read once for p and div and written once for p, whatever the number of
@@ -40,23 +41,29 @@
 // strip, and launches at most as many clusters as fit the card at once;
 // each takes episodes in turn.
 //
-// Tiled mode (grids past the cluster's shared memory: 1024^2, 2048^2): the
-// TPU kernel's tiled scheme, in two dimensions. A sweep moves information
-// one cell, so a tile padded by k halo cells on each side computes its own
-// cells exactly after k sweeps with no communication between blocks. Each
-// block owns a TILE x TILE tile of one episode (gridDim = (tiles per
-// episode, episodes)), loads the tile and its halo (clipped to the grid,
-// where the zero taps are the true ones) of p and div into shared memory,
-// sweeps there with the interior mask taken in global coordinates, and
-// writes back only its own cells. The cells it sweeps shrink by one on each
-// cut side per sweep: beyond that they are not needed. At TILE 32 and 20
-// sweeps a block holds 72 x 72 cells three times (62 KB). A call with more
-// than MAX_HALO sweeps runs them in passes of at most MAX_HALO,
-// ping-ponging between the output and a scratch plane so that the last pass
-// lands in the output.
+// Band mode (grids past one cluster's shared memory: 1024^2, 2048^2): the
+// TPU kernel's tiled scheme (row stripes padded by the pass's sweep count
+// in halo rows) at the cluster mode's scale. A sweep moves information one
+// row, so a band of `own` rows padded by `halo` rows on each cut side
+// computes its own rows exactly after up to `halo` sweeps with no
+// communication between clusters. Each cluster takes (episode, band) items
+// in turn; the `span` = own + 2 halo rows of a band (shifted inside the
+// grid at its top and bottom, so that every item has the same stripes) are
+// cut into the cluster's CTA stripes and swept by the cluster mode's
+// machinery as they stand: the stripes' halo rows between CTAs by st.async,
+// the rows just outside the span (where the band is cut, not at the grid's
+// edge) read from global memory once. The rows near a cut go stale one row
+// a sweep and never reach the owned rows; sweeping them all the same costs
+// nothing, as a sweep waits for the CTA with the most rows anyway. Only
+// owned rows are written back. A call with more sweeps than `halo` runs
+// them in passes, one launch each, ping-ponging between the output and a
+// scratch plane so that the last pass lands in the output. HBM is read
+// once a pass; at 2048^2 x 20 sweeps 16 CTAs of 8 rows carry 128 rows, 88
+// of them owned: 1.45 cells swept per owned cell, against 5.06 for the
+// 32 x 32 tiles this mode replaced.
 //
 // Rounding: built with -fmad=false and summed in the plain version's order
-// ((((up + down) + left) + right) - div) * 0.25, so both modes match
+// ((((up + down) + left) + right) - div) * 0.25, so every plan matches
 // ops/jacobi.py:jacobi_pressure_reference to the bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,7 +84,21 @@ struct ClusterParams {
   const float* div;
   float* out;
   int episodes, h, w, iters;
-  int rows;  // rows per CTA (the last CTA may have fewer)
+  int rows;  // rows per CTA of a band's span (the last CTA may have fewer)
+  // a band: `own` rows of the grid, swept as `span` rows that pad them by
+  // `halo` rows on each cut side; `bands` per episode (the cluster mode:
+  // one band of span = own = h)
+  int span, own, halo, bands;
+};
+
+// Where a CTA's stripe of one (episode, band) item lies: `at` its first
+// cell, from grid row r0, n rows; whether the rows just above and below it
+// exist in the grid (loaded as its halo); its rows [wlo, whi) the band owns.
+struct Stripe {
+  long at;
+  int r0, n;
+  bool above, below;
+  int wlo, whi;
 };
 
 // Floats of one p plane of a CTA: its rows and a halo row above and below,
@@ -135,11 +156,12 @@ __device__ __forceinline__ void end_sweep(Halos& hx, uint32_t in_bytes, unsigned
 // One cell a thread (any w; R = 0): the stripe's p, with its halo rows, and
 // div in shared memory; each sweep a loop over the stripe's rows by 2D
 // thread coordinates, from plane `a` into plane `b` and back.
-__device__ void episode_cells(const ClusterParams& prm, long at, float* a, float* b,
-                              float* dv, int r0, int n, bool has_prev, bool has_next,
-                              unsigned rank, unsigned csize, Halos& hx, uint32_t in_bytes) {
-  const int h = prm.h, w = prm.w;
-  load_rows(prm.p + at, a, 1, has_prev ? -1 : 0, has_next ? n + 1 : n, w);
+__device__ void episode_cells(const ClusterParams& prm, const Stripe& sp, float* a, float* b,
+                              float* dv, bool has_prev, bool has_next, unsigned rank,
+                              unsigned csize, Halos& hx, uint32_t in_bytes) {
+  const int h = prm.h, w = prm.w, r0 = sp.r0, n = sp.n;
+  const long at = sp.at;
+  load_rows(prm.p + at, a, 1, sp.above ? -1 : 0, sp.below ? n + 1 : n, w);
   load_rows(prm.div + at, dv, 0, 0, n, w);
   __syncthreads();
   float* src = a;
@@ -171,7 +193,7 @@ __device__ void episode_cells(const ClusterParams& prm, long at, float* a, float
     dst = t;
   }
   float* out = prm.out + at;
-  for (int li = threadIdx.y; li < n; li += (int)blockDim.y)
+  for (int li = sp.wlo + (int)threadIdx.y; li < sp.whi; li += (int)blockDim.y)
     for (int j = threadIdx.x; j < w; j += blockDim.x)
       out[(long)li * w + j] = src[(long)(li + 1) * w + j];
 }
@@ -188,10 +210,11 @@ __device__ void episode_cells(const ClusterParams& prm, long at, float* a, float
 // stripe's edge rows, into the neighbour CTA's halo. Shared-memory traffic
 // per quad and sweep: ~24 B at R = 4 against 88 for a cell-a-thread sweep.
 template <int R>
-__device__ void episode_strips(const ClusterParams& prm, long at, float* a, float* b,
-                               int r0, int n, bool has_prev, bool has_next, unsigned rank,
-                               unsigned csize, Halos& hx, uint32_t in_bytes) {
-  const int h = prm.h, w = prm.w;
+__device__ void episode_strips(const ClusterParams& prm, const Stripe& sp, float* a, float* b,
+                               bool has_prev, bool has_next, unsigned rank, unsigned csize,
+                               Halos& hx, uint32_t in_bytes) {
+  const int h = prm.h, w = prm.w, r0 = sp.r0, n = sp.n;
+  const long at = sp.at;
   const int q = threadIdx.x, j = 4 * q;
   const bool col = j < w;
   const int lane = threadIdx.x & 31;
@@ -210,9 +233,9 @@ __device__ void episode_strips(const ClusterParams& prm, long at, float* a, floa
     }
   }
   if (threadIdx.y == 0 && col) {  // the halo rows, from global memory too
-    if (has_prev)
+    if (sp.above)
       *reinterpret_cast<float4*>(a + j) = __ldg(reinterpret_cast<const float4*>(pe - w + j));
-    if (has_next)
+    if (sp.below)
       *reinterpret_cast<float4*>(a + (long)(n + 1) * w + j) =
           __ldg(reinterpret_cast<const float4*>(pe + (long)n * w + j));
   }
@@ -262,23 +285,24 @@ __device__ void episode_strips(const ClusterParams& prm, long at, float* a, floa
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int li = l0 + k;
-    if (li < n && col)
+    if (li >= sp.wlo && li < sp.whi && col)
       *reinterpret_cast<float4*>(prm.out + at + (long)li * w + j) = p[k];
   }
 }
 
-// Each cluster takes episodes cluster_id, + clusters, ...: loads its
-// stripe of p (with the halo rows) and of div, sweeps `iters` times, writes
-// its rows of p. R: the rows of a thread's register strip (0: one cell a
-// thread, p and div in shared memory).
+// Each cluster takes (episode, band) items cluster_id, + clusters, ...:
+// loads its stripe of the band's span of p (with the halo rows) and of div,
+// sweeps `iters` times, writes the band's own rows of p. R: the rows of a
+// thread's register strip (0: one cell a thread, p and div in shared
+// memory).
 template <int R>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 jacobi_cluster_kernel(ClusterParams prm) {
   extern __shared__ __align__(16) float smem[];
   const int h = prm.h, w = prm.w, rows = prm.rows;
   const unsigned rank = cluster_ctarank(), csize = cluster_nctarank();
-  const int r0 = (int)rank * rows;
-  const int n = min(rows, h - r0);
+  const int lr0 = (int)rank * rows;  // the stripe's first row in the span
+  const int n = min(rows, prm.span - lr0);
   const bool has_prev = rank > 0, has_next = rank + 1 < csize;
   const long pf = plane_floats(rows, w);
   float* const pa = smem + kBarBytes / 4;
@@ -291,15 +315,21 @@ jacobi_cluster_kernel(ClusterParams prm) {
   // the next CTA's first
   const uint32_t in_bytes = 4u * (uint32_t)w * ((has_prev ? 1u : 0u) + (has_next ? 1u : 0u));
   const long plane = (long)h * w;
-  for (long e = cluster_id(); e < prm.episodes; e += cluster_count()) {
-    const long at = e * plane + (long)r0 * w;
+  const long items = (long)prm.episodes * prm.bands;
+  for (long item = cluster_id(); item < items; item += cluster_count()) {
+    const long e = item / prm.bands;
+    const int band = (int)(item - e * prm.bands);
+    // the band's own rows [o0, o1) and its span from s0, shifted inside the grid
+    const int o0 = band * prm.own, o1 = min(o0 + prm.own, h);
+    const int s0 = min(max(o0 - prm.halo, 0), h - prm.span);
+    const int r0 = s0 + lr0;
+    const Stripe sp{e * plane + (long)r0 * w, r0, n, r0 > 0, r0 + n < h,
+                    max(o0 - r0, 0), min(o1 - r0, n)};
     if constexpr (R == 0)
-      episode_cells(prm, at, pa, pb, dv, r0, n, has_prev, has_next, rank, csize, hx,
-                    in_bytes);
+      episode_cells(prm, sp, pa, pb, dv, has_prev, has_next, rank, csize, hx, in_bytes);
     else
-      episode_strips<R>(prm, at, pa, pb, r0, n, has_prev, has_next, rank, csize, hx,
-                        in_bytes);
-    __syncthreads();  // the planes are read before the next episode loads into them
+      episode_strips<R>(prm, sp, pa, pb, has_prev, has_next, rank, csize, hx, in_bytes);
+    __syncthreads();  // the planes are read before the next item loads into them
   }
   cluster_barrier();  // no CTA leaves while others may store into it
 }
@@ -329,70 +359,6 @@ Instance& instance_for(int strip) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// ---------------------------------------------------------------- tiled mode
-
-constexpr int TILE = 32;      // owned cells per block: TILE x TILE
-constexpr int MAX_HALO = 32;  // sweeps per pass (halo depth)
-constexpr int BX = 32, BY = 8;
-
-__global__ void __launch_bounds__(BX * BY)
-jacobi_kernel(const float* __restrict__ p_in, const float* __restrict__ div_in,
-              float* __restrict__ p_out, int h, int w, int tiles_x, int k) {
-  extern __shared__ float tsmem[];
-  const long plane = (long)h * w;
-  const long e = blockIdx.y;
-  const float* pe = p_in + e * plane;
-  const float* de = div_in + e * plane;
-  float* oe = p_out + e * plane;
-
-  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
-  const int i0 = ty * TILE, j0 = tx * TILE;                // owned tile
-  const int i1 = min(i0 + TILE, h), j1 = min(j0 + TILE, w);
-  const int r0 = max(i0 - k, 0), r1 = min(i1 + k, h);      // with its halo
-  const int c0 = max(j0 - k, 0), c1 = min(j1 + k, w);
-  const int rh = r1 - r0, rw = c1 - c0;
-  float* a = tsmem;
-  float* b = a + rh * rw;
-  float* d = b + rh * rw;
-
-  for (int r = threadIdx.y; r < rh; r += BY)
-    for (int c = threadIdx.x; c < rw; c += BX) {
-      const long g = (long)(r0 + r) * w + c0 + c;
-      a[r * rw + c] = pe[g];
-      d[r * rw + c] = de[g];
-    }
-  __syncthreads();
-
-  // a side cut by the halo (not the grid's edge) loses one exact cell per
-  // sweep; an interior cell's four taps always lie inside the region
-  const bool cut_top = r0 > 0, cut_bot = r1 < h;
-  const bool cut_left = c0 > 0, cut_right = c1 < w;
-  for (int s = 1; s <= k; ++s) {
-    const int lo_r = cut_top ? s : 0, hi_r = rh - (cut_bot ? s : 0);
-    const int lo_c = cut_left ? s : 0, hi_c = rw - (cut_right ? s : 0);
-    for (int r = lo_r + threadIdx.y; r < hi_r; r += BY) {
-      const int gi = r0 + r;
-      const bool row_in = gi > 0 && gi < h - 1;
-      for (int c = lo_c + threadIdx.x; c < hi_c; c += BX) {
-        const int gj = c0 + c;
-        const int at = r * rw + c;
-        float val = 0.0f;
-        if (row_in && gj > 0 && gj < w - 1)
-          val = (a[at - rw] + a[at + rw] + a[at - 1] + a[at + 1] - d[at]) * 0.25f;
-        b[at] = val;
-      }
-    }
-    __syncthreads();
-    float* t = a;
-    a = b;
-    b = t;
-  }
-
-  for (int r = i0 - r0 + threadIdx.y; r < i1 - r0; r += BY)
-    for (int c = j0 - c0 + threadIdx.x; c < j1 - c0; c += BX)
-      oe[(long)(r0 + r) * w + c0 + c] = a[r * rw + c];
-}
-
 }  // namespace
 
 // How many clusters of this shape fit the card at once, into *out. A
@@ -411,65 +377,52 @@ extern "C" int jacobi_max_active_clusters(int strip, int cluster, int bx, int by
   return (int)e;
 }
 
-// Cluster mode: `iters` sweeps of `episodes` planes of h x w laid out one
-// after another, p, div -> out, in one launch of `clusters` clusters of
-// `cluster` CTAs (ops/jacobi.py, plan_launch), with register strips of
-// `strip` rows a thread (0: one cell a thread). p and div are only read. A
-// plane that is not 16-byte aligned takes one cell a thread whatever the
-// plan's strip: the same bits.
-extern "C" int jacobi_cluster_launch(const void* p, const void* div, void* out,
+// `iters` sweeps of `episodes` planes of h x w laid out one after another,
+// p, div -> out, in launches of `clusters` clusters of `cluster` CTAs
+// (ops/jacobi.py, plan_launch), with register strips of `strip` rows a
+// thread (0: one cell a thread). A band of `own` rows of the grid is swept
+// as `span` rows (`rows` a CTA), padded by `halo` rows on each cut side:
+// the cluster mode is the one band own = span = h, all sweeps in one
+// launch; with own < h the sweeps run in passes of at most `halo`, one
+// launch each, alternating between out and scratch (another plane set of
+// the same size) so that the last lands in out (with one pass, scratch may
+// be out). p and div are only read. A plane that is not 16-byte aligned
+// takes one cell a thread whatever the plan's strip: the same bits.
+extern "C" int jacobi_cluster_launch(const void* p, const void* div, void* out, void* scratch,
                                      int episodes, int h, int w, int iters, int cluster,
                                      int clusters, int rows, int bx, int by, int smem,
-                                     int strip, void* stream) {
-  if (episodes <= 0 || h < 2 || w < 2 || iters < 0 || clusters < 1 ||
-      !cluster_plan_ok(h, w, cluster, rows, bx, by, smem, strip))
+                                     int strip, int span, int own, int halo, void* stream) {
+  if (episodes <= 0 || h < 2 || w < 2 || iters < 0 || clusters < 1 || span > h ||
+      own < 1 || halo < 0 || !cluster_plan_ok(span, w, cluster, rows, bx, by, smem, strip))
     return (int)cudaErrorInvalidValue;
-  if (!(aligned16(p) && aligned16(div) && aligned16(out))) strip = 0;
-  Instance& k = instance_for(strip);
+  const bool banded = own < h;
+  // one band covers the grid as its span; bands leave halo rows on each cut side
+  if (banded ? (own + 2 * halo > span || (iters > 0 && halo == 0)) : span != h)
+    return (int)cudaErrorInvalidValue;
+  const int bands = (h + own - 1) / own;
+  if ((long)episodes * bands > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const bool aligned = aligned16(p) && aligned16(div) && aligned16(out) && aligned16(scratch);
+  Instance& k = instance_for(aligned ? strip : 0);
   cudaError_t e = configure(k, smem, cluster);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
       launch_config(attr, cluster, clusters, bx, by, smem, (cudaStream_t)stream);
-  ClusterParams prm{(const float*)p, (const float*)div, (float*)out, episodes, h, w, iters,
-                    rows};
-  void* args[] = {&prm};
-  e = cudaLaunchKernelExC(&cfg, (const void*)k.fn, args);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// Tiled mode: `iters` sweeps of `episodes` planes of h x w laid out one
-// after another: p, div -> out. With more than MAX_HALO sweeps the passes
-// alternate between out and scratch (another plane set of the same size),
-// ending in out; with fewer, scratch may be out. p and div are only read.
-extern "C" int jacobi_launch(const void* p, const void* div, void* out,
-                             void* scratch, long episodes, int h, int w,
-                             int iters, void* stream) {
-  if (episodes <= 0 || episodes > 65535 || h < 2 || w < 2 || iters < 0)
-    return (int)cudaErrorInvalidValue;
-  const int tiles_y = (h + TILE - 1) / TILE, tiles_x = (w + TILE - 1) / TILE;
-  const dim3 grid((unsigned)(tiles_y * tiles_x), (unsigned)episodes);
-  const dim3 block(BX, BY);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int passes = iters == 0 ? 1 : (iters + MAX_HALO - 1) / MAX_HALO;
-  const int side = TILE + 2 * (iters < MAX_HALO ? iters : MAX_HALO);
-  const int smem = 3 * side * side * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      jacobi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int passes = banded && iters > 0 ? (iters + halo - 1) / halo : 1;
   const float* src = (const float*)p;
   int left = iters;
   for (int pass = 0; pass < passes; ++pass) {
-    const int k = left < MAX_HALO ? left : MAX_HALO;
+    const int sweeps = banded && left > halo ? halo : left;
     float* dst = ((passes - 1 - pass) & 1) == 0 ? (float*)out : (float*)scratch;
-    const int bytes = 3 * (TILE + 2 * k) * (TILE + 2 * k) * (int)sizeof(float);
-    jacobi_kernel<<<grid, block, bytes, st>>>(src, (const float*)div, dst, h, w,
-                                              tiles_x, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    ClusterParams prm{src, (const float*)div, dst, episodes, h, w, sweeps, rows,
+                      span, own, halo, bands};
+    void* args[] = {&prm};
+    e = cudaLaunchKernelExC(&cfg, (const void*)k.fn, args);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
     src = dst;
-    left -= k;
+    left -= sweeps;
   }
   return (int)cudaSuccess;
 }

@@ -19,9 +19,9 @@ probabilities are cast to v's type before P.V, which accumulates in float32.
   package's `flash_attention`), through the lean kernel with one head.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version for CPU tensors only. The float32 forward and the float32 fused and
-dk/dv backward run on the tensor cores in split TF32 (csrc/tf32.cuh), one
-CTA of 64 rows per (row tile, head, batch).
+version for CPU tensors only. The float32 forward and all three float32
+backward kernels (fused, dq, dk/dv) run on the tensor cores in split TF32
+(csrc/tf32.cuh), one CTA of 64 rows per (row tile, head, batch).
 """
 from __future__ import annotations
 
@@ -104,14 +104,23 @@ def flash_attention_tokens_reference(
     return flash_attention_tokens_fwd_lse_reference(q, k, v, num_heads, temperature)[0]
 
 
-def _bwd_plain(q, k, v, out, lse, dout, num_heads, temperature, dq, dkv):
+def _bwd_plain(q, k, v, out, lse, dout, num_heads, temperature, dq, dkv,
+               kernel_exp=False):
     """The plain backward's arithmetic: (dq,) if `dq`, then (dk, dv) if
-    `dkv`."""
+    `dkv`. With `kernel_exp`, P is formed by the kernels' formula,
+    exp2(S scale log2(e) - lse log2(e)), instead of exp(S scale - lse): the
+    same value, rounded another way (chip_smoke.py measures by it how far
+    bf16 roundings of P and dS alone move the gradients)."""
     hd = q.shape[-1] // num_heads
     scale = _scale(hd, temperature)
     qh, kh, vh, doh = (_split(t, num_heads) for t in (q, k, v, dout))
     delta = (doh * _split(out, num_heads)).sum(dim=-1, keepdim=True)
-    p = torch.exp(torch.einsum("bhid,bhjd->bhij", qh, kh) * scale - lse[..., None])
+    s = torch.einsum("bhid,bhjd->bhij", qh, kh)
+    if kernel_exp:
+        log2e = 1.4426950408889634
+        p = torch.exp2(s * float(scale * log2e) - lse[..., None] * log2e)
+    else:
+        p = torch.exp(s * scale - lse[..., None])
     dp = torch.einsum("bhid,bhjd->bhij", doh, vh)
     ds = (p * (dp - delta) * scale).to(q.dtype).float()
     grads = ()

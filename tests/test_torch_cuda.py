@@ -259,22 +259,24 @@ def test_jacobi_kernel_matches_plain(cuda, episodes, iters):
                          ids=["odd", "2x2", "3x70", "two-passes", "2048", "last-stripe-1-row",
                               "260-wide"])
 def test_jacobi_kernel_odd_and_large_grids(cuda, h, w, iters):
-    """Bit-equal on odd and tiny grids, past MAX_HALO sweeps, on a 3 x 8
+    """Bit-equal on odd and tiny grids, past MAX_DEPTH sweeps, on a 3 x 8
     grid whose last stripe has one row, at 260 columns (65 quads: a warp's
     ends inside a row, idle lanes past it) and on a
     2048^2 grid, where the TPU kernel tiles; as many launches as the plan
-    says (one in the cluster mode, one per MAX_HALO sweeps tiled). The
-    tiled mode forced on each grid through the wrapper's launcher gives the
-    same bits (past MAX_HALO: two passes through scratch)."""
+    says (one in the cluster mode, one per pass in the band mode). The band
+    mode forced on each grid that has room for a band (the smallest
+    shared-memory budget that gives one) through the wrapper's launcher
+    gives the same bits (past MAX_DEPTH: two passes through scratch)."""
     p, div = _pressure_inputs(cuda, 2 if h < 2048 else 1, h, w)
-    plan = jacobi_ops.launch_plan(p.shape[0], h, w, device=cuda)
-    assert plan.mode == ("tiled" if h == 2048 else "cluster")
+    plan = jacobi_ops.launch_plan(p.shape[0], h, w, device=cuda, num_iters=iters)
+    assert plan.mode == ("band" if h == 2048 else "cluster")
     launches = jacobi_ops.LAUNCHES
     out = jacobi_ops.jacobi_pressure(p, div, iters)
     assert jacobi_ops.LAUNCHES == launches + plan.launches(iters)
     want = jacobi_ops.jacobi_pressure_reference(p, div, iters)
     assert torch.equal(out, want)
-    assert torch.equal(jacobi_ops._launch(p, div, iters, jacobi_ops.TILED), want)
+    for band in _forced_bands(p.shape[0], h, w, iters)[:1]:
+        assert torch.equal(jacobi_ops._launch(p, div, iters, band), want), band.describe()
 
 
 def test_jacobi_kernel_unaligned_planes(cuda):
@@ -294,46 +296,74 @@ def _card_jacobi_count():
     return jacobi_ops.card_active_clusters(torch.cuda.current_device())
 
 
-@pytest.mark.parametrize("shape", [(1, 256, 256), (3, 256, 256), (2, 37, 53), (1, 512, 512)],
-                         ids=["256", "3x256", "odd", "512"])
+def _forced_bands(episodes, h, w, iters):
+    """The band plans the card holds for calls of `iters` sweeps within the
+    smallest shared-memory budget a CTA that gives any (several bands on a
+    grid that fits one cluster); none where no band fits the grid."""
+    count = _card_jacobi_count()
+    for rows in range(1, h):
+        plans = list(jacobi_ops.band_candidates(episodes, h, w, iters, count,
+                                                smem_max=jacobi_ops.stripe_bytes(rows, w)))
+        if plans:
+            return plans
+    return []
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256), (3, 256, 256), (2, 37, 53), (1, 512, 512),
+                                   (1, 1024, 1024), (1, 2048, 2048), (2, 1100, 900)],
+                         ids=["256", "3x256", "odd", "512", "1024", "2048", "1100x900"])
 def test_jacobi_kernel_every_plan_bit_equal(cuda, shape):
     """Every cluster plan the card holds (each cluster size and thread shape
     of `plan_candidates`: register strips of 1, 2 or 4 rows where w is a
-    multiple of 4, one cell a thread at 37 x 53) and the tiled mode give
-    the plain version's bits at 0, 1, 20 and 45 sweeps. At 512^2 only
-    clusters of 16 CTAs fit."""
+    multiple of 4, one cell a thread at 37 x 53) and band plans give the
+    plain version's bits at 0, 1, 20 and 45 sweeps: at 1024^2, 2048^2 and
+    1100 x 900, which take the band mode, every band plan of
+    `band_candidates`; on the grids that fit one cluster, those of the
+    smallest shared-memory budget that gives any (several bands, and two
+    passes at 45 sweeps). At 512^2 only clusters of 16 CTAs fit."""
     p, div = _pressure_inputs(cuda, *shape)
-    plans = list(jacobi_ops.plan_candidates(*shape, _card_jacobi_count()))
-    assert len({pl.cluster for pl in plans}) > 1 or shape[1] == 512
-    assert {pl.strip > 0 for pl in plans} == {shape[2] % 4 == 0}
+    count = _card_jacobi_count()
+    plans = list(jacobi_ops.plan_candidates(*shape, count))
+    if shape[1] <= 512:
+        assert len({pl.cluster for pl in plans}) > 1 or shape[1] == 512
+        assert {pl.strip > 0 for pl in plans} == {shape[2] % 4 == 0}
+    else:
+        assert not plans
     for iters in (0, 1, 20, 45):
+        bands = (_forced_bands(*shape, iters) if plans else
+                 list(jacobi_ops.band_candidates(*shape, iters, count)))
+        assert bands or shape[1] < 64
         want = jacobi_ops.jacobi_pressure_reference(p, div, iters)
-        for plan in plans + [jacobi_ops.TILED]:
+        for plan in plans + bands:
             got = jacobi_ops._launch(p, div, iters, plan)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (iters, plan.describe())
 
 
-@pytest.mark.parametrize("shape,mode,cluster,clusters", [
-    ((1, 256, 256), "cluster", 16, 1), ((8, 256, 256), "cluster", None, 8),
-    ((1, 512, 512), "cluster", 16, 1), ((1, 1024, 1024), "tiled", 0, 0),
-    ((1, 2048, 2048), "tiled", 0, 0)], ids=["256", "8x256", "512", "1024", "2048"])
-def test_jacobi_kernel_plan_on_the_card(cuda, shape, mode, cluster, clusters):
+@pytest.mark.parametrize("shape,iters,mode,cluster,clusters", [
+    ((1, 256, 256), 20, "cluster", 16, 1), ((8, 256, 256), 20, "cluster", None, 8),
+    ((1, 512, 512), 20, "cluster", 16, 1), ((1, 1024, 1024), 20, "band", 16, None),
+    ((1, 2048, 2048), 20, "band", 16, None), ((2, 1100, 900), 45, "band", None, None)],
+    ids=["256", "8x256", "512", "1024", "2048", "1100x900x45"])
+def test_jacobi_kernel_plan_on_the_card(cuda, shape, iters, mode, cluster, clusters):
     """The plan a call takes with the card's occupancy: one cluster of 16
     CTAs for the served 256^2 episode and for the 512^2 plume grid; the
-    8-episode chunk in one wave of 8 clusters; 1024^2 and 2048^2 tiled, as
-    their stripes do not fit the cluster's shared memory. Each bit-equal at
-    20 sweeps, one launch."""
-    plan = jacobi_ops.launch_plan(*shape, device=cuda)
-    assert plan == jacobi_ops.plan_launch(*shape, _card_jacobi_count())
-    assert (plan.mode, plan.clusters) == (mode, clusters)
+    8-episode chunk in one wave of 8 clusters; 1024^2, 2048^2 and 1100 x
+    900 in bands, as their stripes do not fit one cluster's shared memory
+    (1024^2 and 2048^2 in clusters of 16 CTAs; 45 sweeps in two passes).
+    Each bit-equal, one launch a pass."""
+    plan = jacobi_ops.launch_plan(*shape, device=cuda, num_iters=iters)
+    assert plan == jacobi_ops.plan_launch(*shape, _card_jacobi_count(), iters)
+    assert plan.mode == mode
     if cluster is not None:
         assert plan.cluster == cluster
+    if clusters is not None:
+        assert plan.clusters == clusters
     p, div = _pressure_inputs(cuda, *shape)
     launches = jacobi_ops.LAUNCHES
-    out = jacobi_ops.jacobi_pressure(p, div, 20)
-    assert jacobi_ops.LAUNCHES == launches + 1
-    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, 20))
+    out = jacobi_ops.jacobi_pressure(p, div, iters)
+    assert jacobi_ops.LAUNCHES == launches + (2 if iters == 45 else 1)
+    assert torch.equal(out, jacobi_ops.jacobi_pressure_reference(p, div, iters))
 
 
 @pytest.mark.parametrize("field", ["u", "v", "density"])
@@ -653,12 +683,13 @@ def test_step3d_kernel_matches_plain(cuda, use_pallas):
 
 @pytest.mark.parametrize("head_dim", [16, 32, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_flash_kernels_other_head_dims(cuda, dtype, head_dim):
+def test_flash_kernels_other_head_dims(cuda, monkeypatch, dtype, head_dim):
     """The lean forward, the forward with logsumexp and the backward at head
     dims 16, 32 and 128 against their plain versions, with the head_dim-64
     tests' bounds: forwards float32 atol 1e-5 (bf16 two ulps and
     ||d||/||ref|| 2^-8), lse 1e-4, backward ||d||/||ref|| 1e-5 (bf16
-    2^-10)."""
+    2^-10), on the fused route and on the split route (the dq kernel's
+    dq also bit-equal on a second call)."""
     heads = 256 // head_dim
     g = torch.Generator().manual_seed(head_dim)
     q, k, v, go = (torch.randn(2, 512, 256, generator=g).to(cuda, dtype) for _ in range(4))
@@ -681,6 +712,12 @@ def test_flash_kernels_other_head_dims(cuda, dtype, head_dim):
     bound = 1e-5 if dtype == torch.float32 else 2.0 ** -10
     for a, b in zip(kg, pg):
         assert _rel(a.float(), b.float()) <= bound
+    monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", "0")
+    sg = attn_ops.flash_attention_tokens_bwd(q, k, v, o, rlse, go, heads)
+    for name, a, b in zip("qkv", sg, pg):
+        assert _rel(a.float(), b.float()) <= bound, (name, _rel(a.float(), b.float()))
+    assert torch.equal(sg[0], attn_ops.flash_attention_tokens_bwd(q, k, v, o, rlse, go,
+                                                                  heads)[0])
 
 
 @pytest.mark.parametrize("shape", [(2, 512, hd) for hd in (16, 32, 64, 128)] + FWD_SHAPES,
@@ -691,9 +728,10 @@ def test_flash_split_bwd_kernels_match_plain(cuda, monkeypatch, dtype, shape):
     SMOKEPHYS_FUSED_BWD=0) against their plain versions on the same
     forward output and lse, with the fused kernel's bounds:
     ||d||/||ref|| <= 1e-5 in float32 and 2^-10 in bf16 for each of dq, dk,
-    dv. Neither kernel uses atomics, so two runs are bit-equal and each
-    episode of the batch is bit-equal to its call alone; one launch of
-    each per call."""
+    dv, at head dims 16, 32, 64 and 128 and L = 64, 192, 512 and 1024 (the
+    float32 dq kernel's key tiles: 64 keys, 32 at head_dim 128). Neither
+    kernel uses atomics, so two runs are bit-equal and each episode of the
+    batch is bit-equal to its call alone; one launch of each per call."""
     monkeypatch.setenv("SMOKEPHYS_FUSED_BWD", "0")
     batch, length, head_dim = shape
     heads = 256 // head_dim

@@ -1,8 +1,9 @@
 """The float32 flash kernels' arithmetic, emulated on the CPU (no JAX).
 
-On the card the float32 forward (`flash_f32_kernel`) and the float32 fused
-and dk/dv backward (`flash_bwd_f32_kernel`) in csrc/ form every product on
-the tensor cores in split TF32: each float32 operand x is carried as hi =
+On the card the float32 forward (`flash_f32_kernel`), the float32 fused
+and dk/dv backward (`flash_bwd_f32_kernel`) and the float32 split dq kernel
+(`flash_bwd_dq_f32_kernel`) in csrc/ form every product on the tensor
+cores in split TF32: each float32 operand x is carried as hi =
 tf32(x) and lo = tf32(x - hi) (10 stored mantissa bits, round to nearest,
 ties away from zero), and each 8-deep k-step of a product adds lo hi',
 hi lo' and then hi hi' into a float32 accumulator. The emulation takes
@@ -13,7 +14,9 @@ is then added to the running sum in float32, as the kernels do.
 
 These tests run that arithmetic in torch through the kernels' formulas (the
 forward's online softmax over 64-key tiles, the backward per query tile
-with dQ summed per 64-key block) at B = 2, L = 128, head dims 32 and 64,
+with dQ summed per 64-key block, the split dq kernel per 64-key tile of a
+query-stationary CTA, also at L = 1024) at B = 2, L = 128, head dims 32
+and 64,
 and hold the results against the port's float32 plain versions with the
 bounds the card's checks use: out atol 1e-5, lse atol 1e-4, ||d|| / ||ref||
 <= 1e-5 for each of dq, dk, dv. Two negative controls show that the bound
@@ -160,6 +163,37 @@ def emulated_backward(q, k, v, out, lse, dout, heads, q_tile):
     return merge(dq), merge(dk), merge(dv)
 
 
+def emulated_dq(q, k, v, out, lse, dout, heads, one_accumulator=False):
+    """The float32 split dq kernel's arithmetic, query-stationary: per tile
+    of 64 keys (32 at head_dim 128) S = Q K^T and dP = dO V^T, P =
+    exp2(S scale log2(e) - lse log2(e)) by one FMA, dS = P (dP - delta)
+    scale, then the tile's dS K in a fresh accumulator, added to dQ in
+    float32; its k-steps take the tile's keys 8i..8i+7 in dS's fragment
+    order (2t, 2t + 1: keys 0, 2, 4, 6, 1, 3, 5, 7 of the step). With
+    `one_accumulator`, dS K goes straight into dQ instead. Returns dq [B,
+    L, D]."""
+    qh, kh, vh, oh, gh = (heads_of(t, heads) for t in (q, k, v, out, dout))
+    hd = qh.shape[-1]
+    bk = 32 if hd == 128 else BK
+    scale = torch.tensor(1.0 / (math.sqrt(hd) * TEMPERATURE), dtype=torch.float32)
+    scale_log2 = torch.tensor(float(scale) * LOG2E, dtype=torch.float32)
+    delta = (gh * oh).sum(-1, keepdim=True)
+    la = lse[..., None] * torch.tensor(LOG2E, dtype=torch.float32)
+    order = torch.tensor([8 * i + j for i in range(bk // 8) for j in (0, 2, 4, 6, 1, 3, 5, 7)])
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, kh.shape[-2], bk):
+        kt, vt = kh[..., k0:k0 + bk, :], vh[..., k0:k0 + bk, :]
+        s = mm(qh, kt.transpose(-1, -2))
+        dp = mm(gh, vt.transpose(-1, -2))
+        p = torch.exp2(fma(s, scale_log2.expand_as(s), -la.expand_as(s)))
+        ds = p * (dp - delta) * scale
+        if one_accumulator:
+            dq = mm(ds[..., order], kt[..., order, :], acc=dq)
+        else:
+            dq = dq + mm(ds[..., order], kt[..., order, :])
+    return merge(dq)
+
+
 def inputs(head_dim, seed, batch=2, length=128, width=None):
     """q, k, v, dout [batch, length, width (4 head dims)] float32, from numpy
     draws."""
@@ -220,6 +254,37 @@ def test_split_tf32_backward_within_card_bounds(head_dim):
                                                          TEMPERATURE)
     for name, a, b in zip(("dq", "dk", "dv"), got, refs):
         assert rel_norm(a, b) <= BWD_REL_NORM, (name, rel_norm(a, b))
+
+
+def _dq_gap(head_dim, length, one_accumulator=False):
+    """||d|| / ||ref|| of the emulated split dq kernel against the plain dq,
+    4 heads, B = 2 at L = 128 and 1 above."""
+    q, k, v, dout = inputs(head_dim, seed=20 + head_dim, batch=2 if length == 128 else 1,
+                           length=length)
+    heads = 4
+    out, lse = attn_ops.flash_attention_tokens_fwd_lse_reference(q, k, v, heads, TEMPERATURE)
+    got = emulated_dq(q, k, v, out, lse, dout, heads, one_accumulator)
+    ref = attn_ops.flash_attention_tokens_bwd_dq_reference(q, k, v, out, lse, dout, heads,
+                                                           TEMPERATURE)
+    return rel_norm(got, ref)
+
+
+@pytest.mark.parametrize("head_dim,length", [(32, 128), (64, 128), (64, 1024)],
+                         ids=["hd32", "hd64", "hd64-L1024"])
+def test_split_tf32_dq_within_card_bound(head_dim, length):
+    """The float32 split dq kernel's arithmetic (query-stationary, 64-key
+    tiles, a fresh accumulator per tile, dS's fragment order) within the
+    card's 1e-5 of the plain dq, at L = 128 and at L = 1024 (4 heads of 64:
+    16 tiles added into dQ)."""
+    gap = _dq_gap(head_dim, length)
+    assert gap <= BWD_REL_NORM, gap
+
+
+def test_dq_one_accumulator_exceeds_bound_at_1024():
+    """The negative control of the dq kernel's design: dS K summed over all
+    1024 keys in one accumulator (128 truncating k-steps) crosses 1e-5."""
+    gap = _dq_gap(64, 1024, one_accumulator=True)
+    assert gap > BWD_REL_NORM, gap
 
 
 # L = 1024 with 16 heads of 16 (the card tests' width 256): 128 k-steps of

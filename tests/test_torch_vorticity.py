@@ -47,7 +47,11 @@ def test_jacobi_reference_matches_pallas(branch, monkeypatch):
     """20 sweeps of the plain version against `jacobi_pressure_pallas`:
     whole-grid at 64^2, and the tiled stripes at 128x64 with the VMEM
     budget cut to 80 000 B (stripe 64 and 20 halo rows each side). A fresh
-    jit of the JAX function, so no trace of another budget is reused."""
+    jit of the JAX function, so no trace of another budget is reused. At
+    128x64 the port's band decomposition too (its plain model, with a
+    shared-memory budget of 4 000 B a CTA: spans of 48 rows, 16 bands of 8
+    owned rows), bit-equal to the plain version and so within TOL of the
+    JAX kernel's tiled stripes."""
     h, w = (64, 64) if branch == "whole" else (128, 64)
     if branch == "tiled":
         monkeypatch.setattr(pjacobi, "VMEM_BUDGET_BYTES", 80_000)
@@ -63,6 +67,13 @@ def test_jacobi_reference_matches_pallas(branch, monkeypatch):
     assert stripes == ([] if branch == "whole" else [64])
     got = tjacobi.jacobi_pressure_reference(torch.from_numpy(p), torch.from_numpy(div), 20)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if branch == "tiled":
+        plan = tjacobi.plan_launch(1, h, w, lambda *_: 2, 20, smem_max=4_000)
+        assert (plan.mode, plan.span, plan.band, plan.bands) == ("band", 48, 8, 16)
+        bands = tjacobi.jacobi_pressure_bands(torch.from_numpy(p), torch.from_numpy(div), 20,
+                                              plan)
+        np.testing.assert_allclose(bands.numpy(), want, **TOL)
+        torch.testing.assert_close(bands, got, rtol=0, atol=0)
     # the wrapper takes the plain version on CPU tensors, batched or not
     pair = tjacobi.jacobi_pressure(torch.from_numpy(np.stack([p, p])),
                                    torch.from_numpy(np.stack([div, div])), 20)
