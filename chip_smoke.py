@@ -63,7 +63,9 @@ From the root of a checkout, with one CUDA card:
    C.6; printed with the readings), and a negative control: the kernels'
    step with the 64-query tile of one head of dq of the largest norm
    zeroed must exceed them; the
-   train step on both routes timed in turns, one eval pass, a checkpoint
+   train step on both routes timed in turns, recipe D's phase-1 step
+   (config_twophase_bf16.yaml with fast_math=false) timed 5 + 5 in turns
+   with the fast_math step, one eval pass, a checkpoint
    written and served again through `train/serving.load_model`; then the
    float32 flash train step of `config/config_polish_f32.yaml` (float32,
    use_flash, batch 8, full width): one step on each backward route (6 + 6
@@ -101,7 +103,12 @@ From the root of a checkout, with one CUDA card:
    config_streaming_1024.yaml's 1024^2 grid with vorticity_eps 2.0 (5
    Jacobi launches in the band mode, 5 diffusion launches, none of the
    other kernels; every state bit-equal to the plain per-op solver; the
-   step timed); timings of both kernels (CUDA
+   step timed); then the plume phase: one 8-episode chunk of
+   config_512_plume.yaml's physics at 512^2 (vorticity_eps 2.0, T = 20)
+   through `simulate_episode`, one Jacobi launch (the cluster mode, strips
+   of 4 rows) and one diffusion launch a step, all episodes and labels
+   bit-equal to the plain per-op loop, the step timed at 1 and 8 episodes
+   and both kernels at the chunk's shapes; timings of both kernels (CUDA
    events through the wrapper and the kernel's device time alone by
    torch.profiler: Jacobi at [1,256^2], [8,256^2], [1,512^2], [1,1024^2],
    [1,2048^2],
@@ -130,7 +137,11 @@ From the root of a checkout, with one CUDA card:
    B = 1 and 8 and in float32 at B = 1, the type the 3D model's paths
    launch (the backward's and the split pair's in turns with SDPA's
    backward; the CG kernel's device time too), and the 3D step's device
-   time by kernel (torch.profiler);
+   time by kernel (torch.profiler); then the mg phase: on a warm-started
+   128^3 system the residual of `pressure_solver="mg"`'s 2 V-cycles
+   against the CG kernel's 30 iterations (fails over 1.05 times it), the
+   V-cycles on the card against the CPU, and the mg step (no kernel
+   launch) timed in turns with the CG-kernel step;
 10. gate phase: the quality path through the port's `benchmark` and
    `evaluate` entry points at full width: the 50-sample gate of
    `config/config.yaml` (float32 einsum) on `smokephysnet_128_best.npz` with
@@ -148,6 +159,11 @@ From the root of a checkout, with one CUDA card:
    12 lean, 60 forward-with-logsumexp and 60 backward launches); and the volumetric branches
    at 2 volumes of 128^3 (the benchmark's model row and baselines, the
    report's physics_consistency and reconstruction; 24 CG launches each);
+   then the bridge phase: the reference PyTorch model's state_dict drawn
+   from tests/goldens/model_forward_128.npz's recorded keys and seed,
+   converted by `models/torch_port` and served at full width in float32
+   (TF32 off) against the reference's recorded forward (1e-4, token
+   features 1e-3), its export bit-equal to the state;
    after the training phase, also the float32 einsum train step of
    `config/config_twophase_f32.yaml` (batch 8, full width): the median of 5
    steps after 2, with TF32 off and with cuDNN's TF32 on, and the peak memory;
@@ -300,6 +316,19 @@ VOL_FLASH_RECON = 1e-4  # use_flash (head_dim 32, float32 kernel) vs einsum
 # kernels, float32) vs einsum: ||d|| / ||ref||
 VOL_FLASH_GRAD_REL_NORM = 1e-4
 PARITY_VOL_MSE = 0.000489  # PARITY.md: the JAX model on JAX's held-out draws
+RECIPE_D_CONFIG = os.path.join(ROOT, "config", "config_twophase_bf16.yaml")
+PLUME_CONFIG = os.path.join(ROOT, "config", "config_512_plume.yaml")
+PLUME_EPISODES = 8  # one chunk of config_512_plume.yaml's physics
+MG_WARM_STEPS = 10  # CG-kernel steps that build the warm-started 128^3 system
+MG_CG_RATIO = 1.05  # tests/test_solver3d.py: 2 V-cycles reach CG-30's residual
+# mg on the card vs mg on the CPU, max|d| / max|p|: the same float32
+# operations; the block means' sums may be taken in another order
+MG_CPU_REL = 1e-5
+# the bridged reference model in float32 on the card (TF32 off) vs the
+# reference's recorded forward: tests/test_torch_port.py's bounds
+BRIDGE_ATOL = 1e-4
+BRIDGE_FEATURE_ATOL = 1e-3
+BRIDGE_GOLDEN = os.path.join(ROOT, "tests", "goldens", "model_forward_128.npz")
 
 # the gate phase: the benchmark and evaluate entry points at full width
 GATE_CONFIG = os.path.join(ROOT, "config", "config.yaml")  # float32 einsum
@@ -899,6 +928,7 @@ def training_phase(config, train_ds, val_ds, dev):
     from smokephysai_tpu_torch.train import loop
     from smokephysai_tpu_torch.train.checkpoint import save_checkpoint
     from smokephysai_tpu_torch.train.serving import load_model, make_predictor
+    from smokephysai_tpu_torch.utils.config import apply_overrides, load_config
 
     tc, seed = config["training"], config["tpu"]["seed"]
     bs = tc["batch_size"]
@@ -1112,6 +1142,40 @@ def training_phase(config, train_ds, val_ds, dev):
         f"split {[round(x, 2) for x in route_ms['split']]} ms (median "
         f"{route_med['split']:.3f}; CUDA events)")
 
+    # recipe D's phase-1 step (config_twophase_bf16.yaml with
+    # tpu.fast_math=false: exact GELU, float32 residual) from the same
+    # weights, in turns with this config's fast_math step
+    t = time.time()
+    exact_config = apply_overrides(load_config(RECIPE_D_CONFIG), ["tpu.fast_math=false"])
+    exact = loop.build_train_model(exact_config, dev)
+    exact.load_state_dict(model.state_dict())
+    exact_trainer = loop.Trainer(exact, exact_config, steps_per_epoch,
+                                 torch.Generator(dev).manual_seed(2))
+    exact_trainer.step = trainer.step
+    recipe_ms = {"fast_math": [], "fast_math=false": []}
+    for i in range(2 * ROUTE_STEPS):
+        tag, tr = (("fast_math", trainer), ("fast_math=false", exact_trainer))[i % 2]
+        step_batch = next(it)
+        reset_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        metrics = tr.train_step(step_batch)
+        b.record()
+        b.synchronize()
+        expect_counts(f"train step, {tag}", read_counts(),
+                      flash_attention_tokens_fwd_lse=layers, flash_attention_tokens_bwd=layers)
+        if not math.isfinite(float(metrics["total_loss"])):
+            fail(f"non-finite training loss in the {tag} step")
+        recipe_ms[tag].append(a.elapsed_time(b))
+    recipe_med = {k: statistics.median(v) for k, v in recipe_ms.items()}
+    say(f"train: recipe D's phase-1 step (config_twophase_bf16, fast_math=false, "
+        f"{layers} + {layers} kernel launches a step) and the fast_math step, "
+        f"{ROUTE_STEPS} each in turns: fast_math=false {[round(x, 2) for x in recipe_ms['fast_math=false']]} "
+        f"ms (median {recipe_med['fast_math=false']:.3f}), fast_math "
+        f"{[round(x, 2) for x in recipe_ms['fast_math']]} ms (median "
+        f"{recipe_med['fast_math']:.3f}; CUDA events; {time.time() - t:.1f} s)")
+    del exact_trainer, exact
+
     # checkpoint -> npz export -> served again
     serve_cfg = copy.deepcopy(config)
     serve_cfg["tpu"]["compute_dtype"] = serve_cfg["tpu"]["train_compute_dtype"]
@@ -1136,7 +1200,8 @@ def training_phase(config, train_ds, val_ds, dev):
         fail("the trained checkpoint does not serve back")
     del served, out
     return trainer, it, {"step_ms": step_ms, "counts": total, "losses": losses,
-                         "split_counts": sc, "route_ms": route_med, "c6": c6}
+                         "split_counts": sc, "route_ms": route_med, "c6": c6,
+                         "recipe_ms": recipe_med}
 
 
 def vorticity_phase(dev, name, trace):
@@ -1858,6 +1923,231 @@ def volumetric_phase(dev, name, trace):
             "cg_err": cg_err, "cg_plan": cg_plan, "flash_errs": flash_errs, "timings": timings,
             "hd": hd,
             "width": width, "heads": heads}
+
+
+def plume_phase(dev, name):
+    """config_512_plume.yaml's physics at 512^2 (vorticity_eps 2.0: per-op
+    steps): one chunk of PLUME_EPISODES episodes of T steps through
+    `simulate_episode`, one Jacobi launch (the cluster mode, strips of 4
+    rows) and one three-field diffusion launch a step, all episodes and
+    labels bit-equal to the plain per-op loop, as at 256^2; the step timed
+    at 1 and 8 episodes, the Jacobi kernel at [8,512,512] and the diffusion
+    at the chunk's fields against their plain versions."""
+    import numpy as np
+    import torch
+
+    from smokephysai_tpu_torch.data.synthetic import sample_source_params
+    from smokephysai_tpu_torch.ops import jacobi as jacobi_ops
+    from smokephysai_tpu_torch.ops import stencil as stencil_ops
+    from smokephysai_tpu_torch.physics import solver
+    from smokephysai_tpu_torch.physics.simulator import simulate_episode
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    config = load_config(PLUME_CONFIG)
+    sim = config["simulation"]
+    dt, visc, iters = sim["dt"], sim["viscosity"], sim["num_jacobi_iters"]
+    grid = tuple(sim["grid_size"])
+    h, w = grid
+    eps = config["tpu"]["vorticity_eps"]
+    T = config["data"]["sequence_length"]
+    n = PLUME_EPISODES
+    plan = jacobi_ops.launch_plan(n, h, w, device=dev, num_iters=iters)
+    say(f"plume: {n} episodes at {h}x{w}, T={T}, vorticity_eps {eps}; Jacobi plan "
+        f"{plan.describe()}")
+    if plan.mode != "cluster" or plan.strip != 4:
+        fail(f"the Jacobi kernel at [{n},{h},{w}] took {plan.describe()}, not the cluster "
+             f"mode with strips of 4 rows")
+    src = {k: v.to(dev) for k, v in
+           sample_source_params(torch.Generator().manual_seed(5), n, grid).items()}
+
+    def generate(use_pallas):
+        return simulate_episode(src["xy"], src["intensity"], src["active"],
+                                grid, T, dt, visc, iters, eps, use_pallas)
+
+    reset_counts()
+    t = time.time()
+    seqs, labels = generate(True)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    counts = read_counts()
+    say(f"plume: chunk in {gen_s * 1e3:.1f} ms (host clock, first call); launches {counts}")
+    expect_counts("512^2 plume chunk", counts, jacobi_pressure=T * plan.launches(iters),
+                  diffuse=T)
+    if not (torch.isfinite(seqs).all() and torch.isfinite(labels).all()):
+        fail("non-finite 512^2 episodes or labels")
+    pseqs, plabels = generate(False)
+    err = max(maxerr(seqs, pseqs), maxerr(labels, plabels))
+    say(f"plume: all {n} episodes and labels vs the plain per-op loop: max|d| {err:.3e} "
+        f"(bound 0); labels mean {labels.mean(dim=0).tolist()}")
+    if err != 0.0:
+        fail("the 512^2 plume chunk disagrees with the plain per-op loop")
+    del pseqs, plabels
+
+    step_ms = {}
+    for episodes in (1, n):
+        s = solver.init_state(grid, device=dev, batch=(episodes,)).replace(
+            density=seqs[:episodes, T // 2].contiguous())
+        reset_counts()
+        solver.step(s, dt, visc, iters, eps, use_pallas=True)
+        torch.cuda.synchronize()
+        expect_counts(f"512^2 step x{episodes}", read_counts(), jacobi_pressure=1, diffuse=1)
+        ms = timed(lambda: solver.step(s, dt, visc, iters, eps, use_pallas=True), runs=10)
+        plain_ms = timed(lambda: solver.step(s, dt, visc, iters, eps, use_pallas=False),
+                         runs=5)
+        step_ms[episodes] = (ms, plain_ms)
+        say(f"time plume step {h}x{w} x{episodes} on {name}: kernels {ms:.4f} ms, plain "
+            f"per-op {plain_ms:.4f} ms")
+    gen = torch.Generator().manual_seed(6)
+    p = (0.1 * torch.randn(n, h, w, generator=gen)).to(dev)
+    div = torch.randn(n, h, w, generator=gen).to(dev)
+    call = lambda: jacobi_ops.jacobi_pressure(p, div, iters)  # noqa: E731
+    jacobi_err = maxerr(call(), jacobi_ops.jacobi_pressure_reference(p, div, iters))
+    ms, dev_ms = timed(call), device_ms(call)
+    plain_ms = timed(lambda: jacobi_ops.jacobi_pressure_reference(p, div, iters), runs=5)
+    cells = n * h * w
+    bound = lower_bound(3 * 4 * cells, 5 * cells * iters, F32_FLOPS)
+    timings = {"jacobi_pressure": (ms, plain_ms, *bound)}
+    say(f"time jacobi_pressure [{n},{h},{w}] x{iters} sweeps on {name}: wrapper {ms:.4f} ms, "
+        f"kernel device {dev_ms:.4f} ms ({100 * bound[0] / dev_ms:.1f} % of bound), plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}); max|d| {jacobi_err:.3e}")
+    coef_uv = np.float32(dt) * np.float32(visc)
+    coef_d = np.float32(dt) * (np.float32(visc) * np.float32(0.1))
+    shapes = (((h + 1, w), coef_uv), ((h, w + 1), coef_uv), ((h, w), coef_d))
+    fields = [torch.rand(n, *shape, generator=gen).to(dev) for shape, _ in shapes]
+    call = lambda: stencil_ops.diffuse_fields(*fields, coef_uv, coef_d)  # noqa: E731
+    diffuse_err = max(maxerr(a, stencil_ops.diffuse_reference(f, c))
+                      for a, f, (_, c) in zip(call(), fields, shapes))
+    ms, dev_ms = timed(call), device_ms(call)
+    plain_ms = timed(lambda: [stencil_ops.diffuse_reference(f, c)
+                              for f, (_, c) in zip(fields, shapes)])
+    cells = sum(f.numel() for f in fields)
+    bound = lower_bound(2 * 4 * cells, 7 * cells, F32_FLOPS)
+    timings["diffuse"] = (ms, plain_ms, *bound)
+    say(f"time diffuse_fields u [{n},{h + 1},{w}], v [{n},{h},{w + 1}], density "
+        f"[{n},{h},{w}] in one launch on {name}: wrapper {ms:.4f} ms, kernel device "
+        f"{dev_ms:.4f} ms ({100 * bound[0] / dev_ms:.1f} % of bound), plain {plain_ms:.4f} "
+        f"ms, bound {bound[0]:.6f} ms ({bound[1]}); max|d| {diffuse_err:.3e}")
+    if jacobi_err != 0.0 or diffuse_err != 0.0:
+        fail("the Jacobi or diffusion kernel at 512^2 disagrees with its plain version")
+    return {"counts": counts, "err": err, "jacobi_err": jacobi_err,
+            "diffuse_err": diffuse_err, "timings": timings, "plan": plan.describe(),
+            "step_ms": step_ms, "grid": grid, "episodes": n, "steps": T}
+
+
+def mg_phase(dev, name):
+    """`step3d(pressure_solver="mg")` at config_128cubed.yaml's 128^3: on a
+    warm-started system (MG_WARM_STEPS CG-kernel steps of a smoke source),
+    the residual of 2 V-cycles against the CG kernel's 30 iterations on the
+    same right-hand side (fails over MG_CG_RATIO times it), the V-cycles on
+    the card against the same V-cycles on the CPU; one mg step (no kernel
+    launch) against the CG-kernel step (one), both timed in turns."""
+    import torch
+
+    from smokephysai_tpu_torch.ops import cg3d as cg_ops
+    from smokephysai_tpu_torch.physics import multigrid3d, solver3d
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    config = load_config(VOL_CONFIG)
+    sim = config["simulation"]
+    dt, visc = sim["dt"], sim["viscosity"]
+    grid = tuple(config["data"]["grid_size"])
+    iters = 30  # step3d's num_cg_iters
+    cycles = max(1, iters // 15)
+    d, h, w = grid
+    state = solver3d.init_state3d(grid, device=dev, batch=(1,))
+    state = state.replace(density=solver3d.add_smoke_source3d(
+        state.density, w / 2, h / 2, d / 4, radius=12.0, intensity=1.5))
+    for _ in range(MG_WARM_STEPS):
+        state = solver3d.step3d(state, dt, visc, num_cg_iters=iters, use_pallas=True)
+    div = solver3d.divergence3d(state, dt).contiguous()
+    p0 = state.p.contiguous()
+
+    def residual(p):
+        return float(torch.linalg.vector_norm(cg_ops.laplacian_dirichlet(p) - div))
+
+    reset_counts()
+    p_cg = cg_ops.cg_pressure(p0, div, iters)
+    p_mg = multigrid3d.mg_pressure(p0, div, cycles)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("mg phase: one CG solve and one mg solve", counts, cg_pressure=1)
+    r0, r_cg, r_mg = residual(p0), residual(p_cg), residual(p_mg)
+    say(f"mg: {d}x{h}x{w} warm-started system after {MG_WARM_STEPS} steps: residual "
+        f"||b + Lap p|| from p0 {r0:.6e}, CG kernel x{iters} {r_cg:.6e}, {cycles} V-cycles "
+        f"{r_mg:.6e} (ratio {r_mg / r_cg:.4f}, bound {MG_CG_RATIO}; levels "
+        f"{multigrid3d.num_levels(grid)})")
+    if not r_mg <= MG_CG_RATIO * r_cg:
+        fail("2 V-cycles do not reach the CG kernel's residual at 128^3")
+    cpu = multigrid3d.mg_pressure(p0.cpu(), div.cpu(), cycles)
+    cpu_err = maxerr(p_mg.cpu(), cpu) / float(cpu.abs().max())
+    say(f"mg: the V-cycles on the card vs on the CPU: max|d| / max|p| {cpu_err:.3e} "
+        f"(bound {MG_CPU_REL:g})")
+    if not cpu_err <= MG_CPU_REL:
+        fail("mg on the card disagrees with mg on the CPU")
+    reset_counts()
+    s_mg = solver3d.step3d(state, dt, visc, num_cg_iters=iters, pressure_solver="mg")
+    torch.cuda.synchronize()
+    step_counts = read_counts()
+    expect_counts("mg step", step_counts)
+    if not all(torch.isfinite(getattr(s_mg, f)).all() for f in ("u", "v", "w", "p", "density")):
+        fail("non-finite mg step")
+    ms = in_turns({
+        "mg": lambda: solver3d.step3d(state, dt, visc, num_cg_iters=iters,
+                                      pressure_solver="mg"),
+        "cg": lambda: solver3d.step3d(state, dt, visc, num_cg_iters=iters, use_pallas=True),
+        "mg solve": lambda: multigrid3d.mg_pressure(p0, div, cycles)}, rounds=2)
+    say(f"time volumetric step {grid} x1 on {name}, in turns: pressure_solver='mg' "
+        f"{ms['mg']:.4f} ms ({cycles} V-cycles, 0 kernel launches), CG kernel "
+        f"{ms['cg']:.4f} ms (1 launch); the {cycles} V-cycles alone {ms['mg solve']:.4f} ms")
+    return {"r_cg": r_cg, "r_mg": r_mg, "cpu_err": cpu_err, "ms": ms}
+
+
+def bridge_phase(dev, name):
+    """The reference PyTorch model's state_dict (drawn by
+    `models/torch_port.synth_torch_state` from the golden's recorded keys,
+    shapes and seed) converted by the port's bridge and served on the card
+    through `train/serving.build_model` at config.yaml's full width (float32
+    einsum, TF32 off): its eval forward on the golden's input and chaos
+    fields against the reference's recorded outputs (BRIDGE_ATOL,
+    BRIDGE_FEATURE_ATOL); the export back to the reference's keys bit-equal
+    to the state it came from."""
+    import numpy as np
+    import torch
+
+    from smokephysai_tpu_torch.models import torch_port
+    from smokephysai_tpu_torch.train.serving import build_model
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    with np.load(BRIDGE_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    keys_shapes = {k: tuple(v) for k, v in json.loads(bytes(g["keys_shapes"]).decode()).items()}
+    state = torch_port.synth_torch_state(keys_shapes, seed=int(g["seed"]))
+    model = build_model(load_config(GATE_CONFIG), dev)
+    model.load_state_dict(torch_port.convert_torch_state_dict(state), strict=True)
+    x = torch.from_numpy(g["input"]).permute(0, 2, 3, 1).contiguous().to(dev)
+    fields = [torch.from_numpy(f_).to(dev) for f_ in g["chaos_fields"]]
+    reset_counts()
+    with torch.inference_mode():
+        out = model(x, chaos_fields=fields, return_features=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("bridged reference model, float32 einsum forward", counts)
+    errs = {"reconstructed": maxerr(out["reconstructed"].permute(0, 3, 1, 2),
+                                    torch.from_numpy(g["reconstructed"]).to(dev))}
+    for key in ("physics_features", "latent_features", "intermediate_features"):
+        errs[key] = maxerr(out[key], torch.from_numpy(g[key]).to(dev))
+    exported = torch_port.export_torch_state_dict(model.state_dict())
+    same = sorted(exported) == sorted(k for k in state if k in exported) and all(
+        np.array_equal(v, state[k]) for k, v in exported.items())
+    say(f"bridge: the reference state ({len(state)} keys, seed {int(g['seed'])}) served on "
+        f"{name} at full width (float32 einsum, TF32 off) against its recorded forward: "
+        f"max|d| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (bounds "
+        f"{BRIDGE_ATOL:g}, token features {BRIDGE_FEATURE_ATOL:g}); export bit-equal {same}")
+    if not (max(errs[k] for k in ("reconstructed", "physics_features", "latent_features"))
+            <= BRIDGE_ATOL and errs["intermediate_features"] <= BRIDGE_FEATURE_ATOL and same):
+        fail("the bridged reference model disagrees with the reference's recorded forward")
+    del model, out
+    return {"errs": errs}
 
 
 def gate_phase(dev):
@@ -3136,11 +3426,26 @@ def main():
     # ---------------------------------------------------------------- vorticity
     vort = vorticity_phase(dev, name, trace)
 
+    # ---------------------------------------------------------------- 512^2 plume
+    t = time.time()
+    plume = plume_phase(dev, name)
+    say(f"plume phase: {time.time() - t:.1f} s")
+
     # ---------------------------------------------------------------- volumetric
     vol = volumetric_phase(dev, name, trace)
 
+    # ---------------------------------------------------------------- multigrid
+    t = time.time()
+    mg = mg_phase(dev, name)
+    say(f"mg phase: {time.time() - t:.1f} s")
+
     # ---------------------------------------------------------------- quality gate
     gate = gate_phase(dev)
+
+    # ---------------------------------------------------------------- reference bridge
+    t = time.time()
+    bridge_phase(dev, name)
+    say(f"bridge phase: {time.time() - t:.1f} s")
 
     # ---------------------------------------------------------------- streaming
     stream = streaming_phase(dev, name, smi_line, trace)
@@ -3259,6 +3564,25 @@ def main():
         "shape": (f"p, div [1,{vort['big_grid'][0]},{vort['big_grid'][1]}] f32, 20 sweeps, "
                   f"one a vorticity step ({vort['big_plan']})"),
     })
+    pg = plume["grid"]
+    for kname, source, line, err, shape in (
+            ("jacobi_pressure", "jacobi.cu", "jacobi.py:122", plume["jacobi_err"],
+             f"p, div [{plume['episodes']},{pg[0]},{pg[1]}] f32, 20 sweeps ({plume['plan']})"),
+            ("diffuse", "stencil.cu", "stencil.py:35", plume["diffuse_err"],
+             f"u [{plume['episodes']},{pg[0] + 1},{pg[1]}], v [{plume['episodes']},{pg[0]},"
+             f"{pg[1] + 1}], density [{plume['episodes']},{pg[0]},{pg[1]}] f32 in one launch")):
+        t_ = plume["timings"][kname]
+        kernels.append({
+            "name": f"{kname}[512^2 plume chunk]",
+            "route": "cuda",
+            "source": f"smokephysai_tpu_torch/csrc/{source}",
+            "replaces": f"smokephysai_tpu/ops/pallas/{line}",
+            "launches": plume["counts"][kname],
+            "max_abs_err": max(err, plume["err"]),
+            "ms": t_[0], "plain_ms": t_[1], "bound_ms": t_[2], "bound_by": t_[3],
+            "library_ms": None,
+            "shape": f"{shape}; one a step of the {plume['steps']}-step chunk",
+        })
     t_ = vol["timings"]["cg_pressure"]
     kernels.append({
         "name": "cg_pressure",

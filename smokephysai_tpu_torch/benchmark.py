@@ -214,7 +214,9 @@ def read_samples(path: str, config: Dict, num_samples: int) -> Dict:
     """The draws of `scripts/write_gate_draws.py` for this run: {source
     params, frames [N] int64, chaos_traj {batch: [layers, B, 5, 3]}}.
     Refuses a file whose grid, sequence length, episode count or seed
-    differ from the run's."""
+    differ from the run's, or that lacks the trajectories of a batch shape
+    the run takes (BATCH_SIZE, and the tail's N % BATCH_SIZE where it is
+    not 0)."""
     with np.load(path) as f:
         data = {k: f[k] for k in f.files}
     want = {"grid_size": tuple(config["data"]["grid_size"]),
@@ -228,12 +230,17 @@ def read_samples(path: str, config: Dict, num_samples: int) -> Dict:
         raise ValueError(f"{path} does not hold this run's draws: "
                          + ", ".join(f"{k} {h} in the file, {w} in the run"
                                      for k, (h, w) in wrong.items()))
+    chaos_traj = {int(k[len("chaos_traj_b"):]): torch.from_numpy(v)
+                  for k, v in data.items() if k.startswith("chaos_traj_b")}
+    missing = sorted({min(BATCH_SIZE, num_samples), num_samples % BATCH_SIZE} - {0}
+                     - set(chaos_traj))
+    if missing:
+        raise ValueError(f"{path} holds no chaos trajectories for batches of {missing}")
     return {
         "source_params": {"xy": data["source_xy"], "intensity": data["source_intensity"],
                           "active": data["source_active"]},
         "frames": torch.from_numpy(data["frames"].astype(np.int64)),
-        "chaos_traj": {int(k[len("chaos_traj_b"):]): torch.from_numpy(v)
-                       for k, v in data.items() if k.startswith("chaos_traj_b")},
+        "chaos_traj": chaos_traj,
     }
 
 

@@ -16,8 +16,9 @@ Fields may carry a leading batch of episodes, where the JAX package vmaps.
 (`ops/cg3d.py`) on every volume (the JAX package's Pallas kernel runs only
 on volumes that fit in VMEM); the plain CG otherwise. The JAX package's
 `checkify` guard on the tent-shift displacement does nothing under plain
-jit and is left out; the geometric-multigrid solve
-(`pressure_solver="mg"`) is not ported and is refused.
+jit and is left out. `pressure_solver="mg"` solves the pressure by
+geometric-multigrid V-cycles (`physics/multigrid3d.py`) instead, max(1,
+num_cg_iters // 15) of them, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cg3d as _cg
+from .multigrid3d import mg_pressure
 
 Tensor = torch.Tensor
 
@@ -223,12 +225,11 @@ def step3d(
     pressure_solver: str = "cg",
 ) -> SimState3D:
     """One 3D step: buoyancy on the w faces below each cell, diffusion
-    (density at a tenth of the viscosity), CG projection (the kernel under
-    `use_pallas`), sequential advection of the centred velocities and the
-    density, re-staggering, 0.995 decay."""
-    if pressure_solver == "mg":
-        raise NotImplementedError("pressure_solver='mg' (multigrid3d) is not ported")
-    if pressure_solver != "cg":
+    (density at a tenth of the viscosity), the pressure projection (CG, the
+    kernel under `use_pallas`; or `pressure_solver="mg"`'s V-cycles),
+    sequential advection of the centred velocities and the density,
+    re-staggering, 0.995 decay."""
+    if pressure_solver not in ("cg", "mg"):
         raise ValueError(f"unknown pressure_solver {pressure_solver!r}")
     dt32, visc32, buoy32 = np.float32(dt), np.float32(viscosity), np.float32(buoyancy)
 
@@ -247,8 +248,11 @@ def step3d(
 
     # 3. pressure projection
     div = divergence3d(state, dt)
-    solve = _cg.cg_pressure if use_pallas else cg_pressure
-    p = solve(state.p.contiguous(), div.contiguous(), num_cg_iters)
+    if pressure_solver == "mg":
+        p = mg_pressure(state.p, div, num_cycles=max(1, num_cg_iters // 15))
+    else:
+        solve = _cg.cg_pressure if use_pallas else cg_pressure
+        p = solve(state.p.contiguous(), div.contiguous(), num_cg_iters)
     ndt = -float(dt32)
     u = state.u.clone()
     u[..., :, :, 1:-1] = u[..., :, :, 1:-1] + ndt * (p[..., :, :, 1:] - p[..., :, :, :-1])

@@ -5,8 +5,9 @@ loss = recon MSE + 0.1 chaos MSE + 0.05 physics, global-norm clipping at
 1.0 then AdamW(lr, weight_decay) with the per-epoch cosine schedule, the
 optional input noise (`training.noise_std`) and parameter EMA
 (`training.ema_decay`), best-val and last checkpoints, `init_from`, a
-resume that restores everything, and the JAX trainer's TensorBoard
-scalars through an optional `writer`. A 3-element `data.grid_size` trains
+resume that restores everything, the JAX trainer's TensorBoard
+scalars through an optional `writer`, and a line of JSON per epoch in
+<exp_dir>/epochs.jsonl. A 3-element `data.grid_size` trains
 the volumetric SmokePhysNet3D through the same loop. The JAX package's
 fused, staged and prefetched epoch programs are TPU dispatch workarounds
 and are not ported.
@@ -20,7 +21,9 @@ threefry numbers.
 from __future__ import annotations
 
 import copy
+import json
 import math
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -308,7 +311,9 @@ def fit(
     batch of an epoch its four losses (Train/Batch_Total_Loss, _Recon_,
     _Physics_, _Chaos_) at global step epoch * steps_per_epoch + batch,
     written at the epoch's end; each epoch Train/Epoch_Loss, Val/Epoch_Loss
-    and Learning_Rate at the epoch."""
+    and Learning_Rate at the epoch. Each epoch also appends {epoch,
+    train_loss, val_loss, lr (the rate of the epoch's steps), seconds} in
+    full precision to <exp_dir>/epochs.jsonl."""
     _refuse_mesh(config)
     tc = config["training"]
     batch_size = tc["batch_size"]
@@ -336,8 +341,10 @@ def fit(
         best_val_loss = float("inf") if best is None else float(best)
         print_fn(f"Resumed from {resume_from} at epoch {start_epoch}")
 
+    os.makedirs(exp_dir, exist_ok=True)
     for epoch in range(start_epoch, tc["num_epochs"]):
         t0 = time.time()
+        epoch_lr = trainer.schedule(trainer.step)
         train_losses, batch_logs = [], []
         for batch_idx, b in enumerate(train_ds.epoch_batches(data_gen, batch_size,
                                                              shuffle=True)):
@@ -358,8 +365,13 @@ def fit(
             writer.add_scalar("Train/Epoch_Loss", train_loss, epoch)
             writer.add_scalar("Val/Epoch_Loss", val_loss, epoch)
             writer.add_scalar("Learning_Rate", lr, epoch)
+        seconds = time.time() - t0
         print_fn(f"Epoch {epoch + 1}/{tc['num_epochs']}: train {train_loss:.4f} "
-                 f"val {val_loss:.4f} lr {lr:.6f} ({time.time() - t0:.1f}s)")
+                 f"val {val_loss:.4f} lr {lr:.6f} ({seconds:.1f}s)")
+        with open(os.path.join(exp_dir, "epochs.jsonl"), "a") as f:
+            f.write(json.dumps({"epoch": epoch, "train_loss": train_loss,
+                                "val_loss": val_loss, "lr": epoch_lr,
+                                "seconds": seconds}) + "\n")
         if val_loss < best_val_loss:
             best_val_loss = val_loss
             save_checkpoint(exp_dir, trainer, data_gen,

@@ -37,7 +37,8 @@ from test_torch_net3d import random_variables as random_variables3d
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 DRAWS = {"config/config.yaml": "gate_draws_128x128_n50_s0.npz",
-         "config/config_256_vorticity.yaml": "gate_draws_256x256_n50_s0.npz"}
+         "config/config_256_vorticity.yaml": "gate_draws_256x256_n50_s0.npz",
+         "config/config_512_plume.yaml": "gate_draws_512x512_n100_s0.npz"}
 
 
 def jax_predictor(model, variables, seed=0):
@@ -154,8 +155,9 @@ def test_gate_draws_are_the_jax_clis(config):
     for key in ("xy", "intensity", "active"):
         np.testing.assert_array_equal(draws[f"source_{key}"], np.asarray(params[key]))
     np.testing.assert_array_equal(draws["frames"], np.asarray(frames))
-    samples = tbench.read_samples(os.path.join(GOLDENS, DRAWS[config]), cfg, 50)
-    assert sorted(samples["chaos_traj"]) == [2, 4]
+    samples = tbench.read_samples(os.path.join(GOLDENS, DRAWS[config]), cfg, n)
+    # a batch of 4 and the tail's batch of n % 4 (none at n = 100)
+    assert sorted(samples["chaos_traj"]) == sorted({4, n % 4} - {0})
     assert samples["chaos_traj"][4].shape == (cfg["model"]["num_layers"], 4, 5, 3)
 
 
@@ -170,6 +172,20 @@ def test_samples_of_another_run_are_refused():
     cfg["tpu"]["seed"] = 1
     with pytest.raises(ValueError, match="seed"):
         tbench.read_samples(path, cfg, 50)
+
+
+def test_samples_without_a_batch_shape_are_refused(tmp_path):
+    """A draw file that lacks the chaos trajectories of a batch shape the
+    run takes is refused when it is read: the 512^2 file's N = 100 needs
+    only batches of 4 (no tail), and without them it is refused."""
+    path = os.path.join(GOLDENS, DRAWS["config/config_512_plume.yaml"])
+    cfg = load_config(os.path.join(ROOT, "config", "config_512_plume.yaml"))
+    assert sorted(tbench.read_samples(path, cfg, 100)["chaos_traj"]) == [4]
+    with np.load(path) as f:
+        cut = {k: f[k] for k in f.files if k != "chaos_traj_b4"}
+    np.savez(tmp_path / "cut.npz", **cut)
+    with pytest.raises(ValueError, match=r"batches of \[4\]"):
+        tbench.read_samples(str(tmp_path / "cut.npz"), cfg, 100)
 
 
 def test_volumetric_model_row_and_persistence_match_jax(monkeypatch):

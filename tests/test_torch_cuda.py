@@ -888,3 +888,90 @@ def test_gate_batches_on_the_card_match_the_cpu_path(cuda):
             torch.testing.assert_close(gb[key].cpu(), cb[key], atol=1e-5, rtol=0)
         for key in ("reconstructed", "physics_features"):
             torch.testing.assert_close(gout[key].cpu(), cout[key], atol=1e-4, rtol=0)
+
+
+def test_plume_512_chunk_matches_plain(cuda):
+    """config_512_plume.yaml's physics (vorticity_eps 2.0, per-op steps): 2
+    episodes of the config's T = 20 steps (the chaos label needs more than
+    10) through `simulate_episode` with the Jacobi (cluster mode, strips of
+    4 rows) and diffusion kernels against the plain per-op loop, bit-equal;
+    one launch of each a step."""
+    import os
+
+    from smokephysai_tpu_torch.data.synthetic import sample_source_params
+    from smokephysai_tpu_torch.physics.simulator import simulate_episode
+    from smokephysai_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = load_config(os.path.join(root, "config", "config_512_plume.yaml"))
+    sim, steps = config["simulation"], config["data"]["sequence_length"]
+    grid = tuple(sim["grid_size"])
+    assert jacobi_ops.launch_plan(2, *grid, device=cuda).strip == 4
+    src = {k: v.to(cuda) for k, v in
+           sample_source_params(torch.Generator().manual_seed(5), 2, grid).items()}
+    args = (src["xy"], src["intensity"], src["active"], grid, steps, sim["dt"],
+            sim["viscosity"], sim["num_jacobi_iters"], config["tpu"]["vorticity_eps"])
+    j, d = jacobi_ops.LAUNCHES, stencil_ops.LAUNCHES
+    seqs, labels = simulate_episode(*args, True)
+    assert (jacobi_ops.LAUNCHES - j, stencil_ops.LAUNCHES - d) == (steps, steps)
+    assert torch.isfinite(seqs).all() and torch.isfinite(labels).all()
+    ref_seqs, ref_labels = simulate_episode(*args, False)
+    torch.testing.assert_close(seqs, ref_seqs, rtol=0, atol=0)
+    torch.testing.assert_close(labels, ref_labels, rtol=0, atol=0)
+
+
+def test_mg_on_the_card_matches_the_cpu(cuda):
+    """`mg_pressure` (2 V-cycles) on a batch of 2 at 64^3 and on 37x53x29
+    (no coarsening) on the card against the CPU: within 1e-5 of the
+    largest |p| (the same float32 operations; the block means' sums may be
+    taken in another order); `step3d(pressure_solver="mg")` launches no
+    kernel."""
+    from smokephysai_tpu_torch.physics import multigrid3d
+
+    g = torch.Generator().manual_seed(8)
+    for shape in ((2, 64, 64, 64), (1, 37, 53, 29)):
+        div = torch.randn(shape, generator=g)
+        p0 = 0.1 * torch.randn(shape, generator=g)
+        ref = multigrid3d.mg_pressure(p0, div, 2)
+        got = multigrid3d.mg_pressure(p0.to(cuda), div.to(cuda), 2).cpu()
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    s = solver3d.init_state3d((32, 32, 32), device=cuda, batch=(1,))
+    s = s.replace(density=solver3d.add_smoke_source3d(s.density, 12.0, 16.0, 10.0))
+    n = cg_ops.LAUNCHES
+    out = solver3d.step3d(s, pressure_solver="mg", use_pallas=True)
+    assert cg_ops.LAUNCHES == n and torch.isfinite(out.p).all()
+
+
+def test_reference_bridge_forward_on_the_card(cuda):
+    """The reference state_dict drawn from the golden's recorded keys and
+    seed, bridged by `models/torch_port` into the port's SmokePhysNet on the
+    card (float32 einsum, TF32 off), against the reference's recorded
+    forward: atol 1e-4 on the outputs, 1e-3 on the token features, as
+    tests/test_torch_port.py holds the JAX model on the CPU."""
+    import json
+    import os
+
+    import numpy as np
+
+    from smokephysai_tpu_torch.models import torch_port
+    from smokephysai_tpu_torch.models.net import SmokePhysNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
+                        "model_forward_128.npz")
+    with np.load(path) as f:
+        gold = {k: f[k] for k in f.files}
+    ks = {k: tuple(v) for k, v in json.loads(bytes(gold["keys_shapes"]).decode()).items()}
+    model = SmokePhysNet().to(cuda).eval()
+    model.load_state_dict(torch_port.convert_torch_state_dict(
+        torch_port.synth_torch_state(ks, seed=int(gold["seed"]))), strict=True)
+    x = torch.from_numpy(gold["input"]).permute(0, 2, 3, 1).contiguous().to(cuda)
+    with torch.no_grad():
+        out = model(x, chaos_fields=[torch.from_numpy(f).to(cuda) for f in gold["chaos_fields"]],
+                    return_features=True)
+    np.testing.assert_allclose(out["reconstructed"].permute(0, 3, 1, 2).cpu().numpy(),
+                               gold["reconstructed"], atol=1e-4, rtol=0)
+    for key in ("physics_features", "latent_features"):
+        np.testing.assert_allclose(out[key].cpu().numpy(), gold[key], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(out["intermediate_features"].cpu().numpy(),
+                               gold["intermediate_features"], atol=1e-3, rtol=0)

@@ -137,8 +137,8 @@ def test_step3d_matches_jax(max_disp):
                                        atol=2e-6, rtol=1e-5, err_msg=name)
         jp = _np(js.p)
         np.testing.assert_allclose(ts.p.numpy(), jp, atol=1e-5 * np.abs(jp).max(), rtol=0)
-    with pytest.raises(NotImplementedError, match="mg"):
-        solver3d.step3d(ts, pressure_solver="mg")
+    with pytest.raises(ValueError, match="pressure_solver"):
+        solver3d.step3d(ts, pressure_solver="jacobi")
 
 
 def test_simulate_episode3d_matches_jax():
